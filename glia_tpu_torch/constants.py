@@ -1,0 +1,21 @@
+"""Framework-wide constants (the port's copy of glia_tpu.constants).
+
+Mirror the reference's base definitions (code/glia_base.hxx:43-60,
+code/glia_image.hxx:27-29) so that numeric semantics (safe division,
+background/mask conventions) line up exactly with the reference.
+"""
+
+import numpy as np
+
+# Background label (glia_image.hxx:27) - excluded from evaluation by default.
+BG_VAL = 0
+# Mask-out value (glia_image.hxx:28): pixels where mask == 0 are ignored.
+MASK_OUT_VAL = 0
+
+# Float epsilon used for "is zero" tests and safe division (glia_base.hxx:57).
+FEPS = 2.22e-16
+
+# Sentinel label used for out-of-bounds neighbors in vectorized contour
+# classification.  Must never collide with a real label; real labels are
+# int32 >= 0.
+OOB_LABEL = np.int32(-1)

@@ -1,0 +1,46 @@
+"""The port and its chip smoke script import nothing of JAX or glia_tpu.
+
+An AST scan of every module of glia_tpu_torch/ and of chip_smoke.py for
+``import``/``from`` statements (at any depth, relative imports resolved)
+naming jax, jaxlib or glia_tpu.
+"""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "glia_tpu"}
+FILES = sorted((ROOT / "glia_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    package = path.relative_to(ROOT).parts[:-1]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[:len(package) - node.level + 1]
+                yield (base[0] if base else ""), node.lineno
+            else:
+                yield node.module.split(".")[0], node.lineno
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "glia_tpu_torch/models/forest.py" in names
+    assert "glia_tpu_torch/ops/cuda/__init__.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_glia_tpu_import(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
