@@ -188,58 +188,38 @@ def phase_data(side, seed, n_trees, max_depth, dev):
             f"|d| / (1e-3 + 1e-3 |ref|) = {scaled}")
     rng = np.random.default_rng(seed)
     model = random_forest(feats.cpu().numpy(), n_trees, max_depth, rng)
+    _, inner, leaves = node_shape(model)
     emit({"phase": "data", "side": side, "seed": seed,
           "R": static.R, "E": static.E, "D": static.feat_dim,
           "valid": int(valid.sum()),
           "feature_err_vs_f64": scaled,
           "forest": {"trees": model.n_trees,
                      "nodes_padded": int(model.feature.shape[1]),
-                     "nodes": count_nodes(model),
-                     "max_depth": model.max_depth},
+                     "nodes": inner + leaves, "inner": inner,
+                     "leaves": leaves, "max_depth": model.max_depth},
           "seconds": time.perf_counter() - t})
     return data, feats, model
 
 
-def count_nodes(model):
-    """Number of real nodes: the root and every child of a split (the
+def node_shape(model):
+    """Depth of every node [T, N] (0 at the root), and the number of real
+    inner nodes and leaves: the root and every child of a split (the
     padding after each tree's last node is never a child)."""
-    n = 0
-    for t in range(model.n_trees):
-        reach = np.zeros(model.feature.shape[1], bool)
-        reach[0] = True
-        inner = model.feature[t] >= 0
-        reach[model.left[t][inner]] = True
-        reach[model.right[t][inner]] = True
-        n += int(reach.sum())
-    return n
-
-
-def path_steps(X, tables):
-    """Steps each (sample, tree) walk descends before its leaf: the
-    gathers the forest walk needs for these inputs."""
-    T, N = tables.n_trees, tables.n_nodes
-    B, D = X.shape
-    dev = X.device
-    feat = tables.feature.long()
-    tree_base = torch.arange(T, device=dev)[None, :] * N
-    row_base = (torch.arange(B, device=dev) * D)[:, None]
-    node = torch.zeros((B, T), dtype=torch.long, device=dev)
-    steps = torch.zeros((B, T), dtype=torch.long, device=dev)
-    Xf = X.reshape(-1)
-    for _ in range(tables.max_depth + 1):
-        flat = tree_base + node
-        f = feat[flat]
-        inner = f >= 0
-        fv = Xf[row_base + f.clamp(min=0)]
-        nxt = torch.where(fv <= tables.threshold[flat],
-                          tables.left.long()[flat], tables.right.long()[flat])
-        node = torch.where(inner, nxt, node)
-        steps += inner
-    return steps
+    depth = np.zeros(model.feature.shape, np.int64)
+    real = np.zeros(model.feature.shape, bool)
+    real[:, 0] = True
+    t, n = np.nonzero(model.feature >= 0)
+    for _ in range(model.max_depth):
+        for child in (model.left[t, n], model.right[t, n]):
+            depth[t, child] = depth[t, n] + 1
+            real[t, child] = True
+    inner = len(t)
+    return depth, inner, int(real.sum()) - inner
 
 
 def phase_kernel(feats, model, seed):
-    from glia_tpu_torch.models.forest import ForestTables, forest_votes_torch
+    from glia_tpu_torch.models.forest import (
+        ForestTables, forest_leaves_torch, forest_votes_torch)
     from glia_tpu_torch.ops.cuda import forest_votes_cuda
 
     tables = ForestTables.from_model(model, feats.device)
@@ -271,17 +251,23 @@ def phase_kernel(feats, model, seed):
     ms = cuda_time_ms(lambda: forest_votes_cuda(feats, tables), reps=20)
     plain_ms = cuda_time_ms(lambda: forest_votes_torch(feats, tables),
                             reps=5)
-    steps = path_steps(feats, tables)
-    mean_steps = float(steps.double().mean())
+    # the bound: each real node read once (an inner node's feature,
+    # threshold, left and right, a leaf's feature and class), X read once,
+    # the output written once; one fp32 compare per step this data takes,
+    # a walk's steps being the depth of the leaf it ends on
+    depth, inner, leaves = node_shape(model)
+    steps = torch.as_tensor(depth.reshape(-1), device=feats.device)[
+        forest_leaves_torch(feats, tables)]
     gathers = int(steps.sum())
-    bytes_moved = 4 * (B * D + 5 * T * N + B * C)
+    bytes_moved = 4 * B * D + 16 * inner + 8 * leaves + 4 * B * C
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = gathers / FP32_OPS_PER_S * 1e3   # one fp32 compare per step
+    t_ops = gathers / FP32_OPS_PER_S * 1e3
     emit({"phase": "kernel", "name": "forest_votes", "B": B, "D": D,
           "T": T, "N": N, "C": C, "max_depth": tables.max_depth,
-          "mean_steps": mean_steps, "gathers": gathers,
+          "mean_steps": gathers / (B * T), "gathers": gathers,
           "bytes": bytes_moved, "mismatches": mismatches,
           "tie_rows": int(ties.shape[0]), "ms": ms, "plain_ms": plain_ms})
+    # the kernel's path under both keys its readers look up
     return {"name": "forest_votes", "route": "cuda",
             "source": "glia_tpu_torch/ops/cuda/forest_votes.cu",
             "src": "glia_tpu_torch/ops/cuda/forest_votes.cu",

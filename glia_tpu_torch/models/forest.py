@@ -146,17 +146,17 @@ def check_features(tables: ForestTables, D: int):
                          f"but the samples have {D} features")
 
 
-def forest_votes_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
-    """Plain PyTorch forest walk: vote fractions [B, C] float32.
+def forest_leaves_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
+    """Plain PyTorch forest walk: the node each (sample, tree) walk ends
+    on, as flat indices [B, T] into the tables.
 
     Lock-step gather walk over [B, T] node indices for ``max_depth + 1``
     levels, a node that is a leaf staying put (the counterpart of
-    glia_tpu's forest_votes_jax_fn).  The CPU path and the yardstick the
-    CUDA kernel is held against."""
+    glia_tpu's forest_votes_jax_fn)."""
     X = X.to(torch.float32)
     B, D = X.shape
     check_features(tables, D)
-    T, N, C = tables.n_trees, tables.n_nodes, tables.n_classes
+    T, N = tables.n_trees, tables.n_nodes
     dev = X.device
     Xf = X.reshape(-1)
     feat = tables.feature.long()
@@ -172,10 +172,17 @@ def forest_votes_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
         nxt = torch.where(fv <= tables.threshold[flat], left[flat],
                           right[flat])
         node = torch.where(f < 0, node, nxt)
-    cls = tables.leaf_class[tree_base + node]                   # [B, T]
-    classes = torch.arange(C, dtype=cls.dtype, device=dev)
+    return tree_base + node
+
+
+def forest_votes_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
+    """Plain PyTorch forest walk: vote fractions [B, C] float32.  The CPU
+    path and the yardstick the CUDA kernel is held against."""
+    cls = tables.leaf_class[forest_leaves_torch(X, tables)]    # [B, T]
+    classes = torch.arange(tables.n_classes, dtype=cls.dtype,
+                           device=cls.device)
     votes = (cls[..., None] == classes).sum(dim=1).to(torch.float32)
-    return votes * inv_trees(T, dev)
+    return votes * inv_trees(tables.n_trees, cls.device)
 
 
 def inv_trees(T: int, device) -> torch.Tensor:

@@ -27,6 +27,7 @@ from glia_tpu.ops.pallas.forest import forest_votes_pallas_fn
 from glia_tpu_torch.models.forest import (
     ForestModel,
     ForestTables,
+    forest_leaves_torch,
     forest_votes,
     forest_votes_torch,
     make_label_scorer,
@@ -102,6 +103,17 @@ def test_walk_matches_pallas_kernel(forest_case):
     fn, tab = forest_votes_pallas_fn(model, block_b=256, interpret=True)
     want = np.asarray(jax.jit(fn)(jnp.asarray(X), jnp.asarray(tab)))
     np.testing.assert_array_equal(_port_votes(model, X), want)
+
+
+def test_walk_ends_on_a_leaf_of_each_tree(forest_case):
+    model, X = forest_case
+    tables = ForestTables.from_model(_to_port(model), "cpu")
+    leaves = forest_leaves_torch(torch.from_numpy(X), tables)
+    assert leaves.shape == (len(X), model.n_trees)
+    assert bool((tables.feature[leaves] < 0).all())
+    np.testing.assert_array_equal(
+        (leaves // tables.n_nodes).numpy(),
+        np.broadcast_to(np.arange(model.n_trees), leaves.shape))
 
 
 def test_float64_features_compare_as_float32(forest_case):
