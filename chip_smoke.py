@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--side 1024] [--seed 0]
 
-Drives the port's main path, ``pipeline.hmt_segment(engine="device_bc")``,
-on a synthetic EM slice (1024 x 1024 by default, the SNEMI3D section size)
-with a seeded random forest in the reference's shape (255 trees, classes
-{-1, 1}, depth up to 24).  Phases, one JSON line each:
+Drives the port's main paths, ``pipeline.hmt_segment`` with
+``engine="device_bc"`` and with ``engine="device"`` (policies mean and
+median), on a synthetic EM slice (1024 x 1024 by default, the SNEMI3D
+section size) with seeded random forests in the reference's shape (255
+trees, classes {-1, 1}, depth up to 24).  Phases, one JSON line each:
 
   env     torch / CUDA versions, the card's name and power limit
   build   the CUDA kernels (nvcc, sm_90a) and the C++ host runtime (g++),
@@ -14,11 +15,19 @@ with a seeded random forest in the reference's shape (255 trees, classes
   data    the slice, its RAG and initial candidate features on the card
           (held against the same features computed in float64 on the
           CPU), and the random forest
-  kernel  every kernel of the path against its plain PyTorch version on
-          the card at the slice's shapes; then the ``kernels`` line
-  slice   hmt_segment on the card with launch counts, stage times, VI /
-          adapted Rand, a merge-forest validity check, and a second merge
-          loop run to count the order rows two card runs agree on
+  kernel  every kernel of the paths against its plain PyTorch version on
+          the card at the slice's shapes (the forest walk; the segment
+          sum, both entry points, at the shapes the merge engine gives it)
+  slice   hmt_segment(engine="device_bc") on the card with launch counts,
+          stage times, VI / adapted Rand, a merge-forest validity check,
+          and a second merge loop run to count the order rows two card
+          runs agree on
+  slice_device
+          hmt_segment(engine="device") on the card for the policies mean
+          and median with the device forest walk: launch counts of both
+          kernels, stage times, the merge loop's profile, the exact
+          saliencies against the serial replay, order agreement of two
+          runs; then the ``kernels`` line
 
 Any failed phase raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
@@ -70,6 +79,27 @@ def cuda_time_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def cuda_graph_time_ms(fn, inner=20, reps=20):
+    """Device milliseconds of one ``fn()``: ``inner`` calls are captured
+    into one CUDA graph and the graph's replays are timed, so that the
+    host's time to enqueue a call (tens of microseconds, more than a small
+    kernel runs) does not count.  The calls run back to back on the same
+    tensors, so they find them in the L2 cache, as a superstep of the
+    merge loop finds the tensors its previous kernels wrote."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return cuda_time_ms(graph.replay, reps) / inner
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +228,7 @@ def phase_data(side, seed, n_trees, max_depth, dev):
                      "nodes": inner + leaves, "inner": inner,
                      "leaves": leaves, "max_depth": model.max_depth},
           "seconds": time.perf_counter() - t})
-    return data, feats, model
+    return data, seg, rag, feats, model
 
 
 def node_shape(model):
@@ -217,7 +247,9 @@ def node_shape(model):
     return depth, inner, int(real.sum()) - inner
 
 
-def phase_kernel(feats, model, seed):
+def phase_kernel(feats, model, seed, path="device_bc"):
+    """Kernel B1 (forest vote walk) against the plain walk at one path's
+    batch: ``feats`` [B, D] float32 on the card, ``model`` the forest."""
     from glia_tpu_torch.models.forest import (
         ForestTables, forest_leaves_torch, forest_votes_torch)
     from glia_tpu_torch.ops.cuda import forest_votes_cuda
@@ -262,7 +294,8 @@ def phase_kernel(feats, model, seed):
     bytes_moved = 4 * B * D + 16 * inner + 8 * leaves + 4 * B * C
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = gathers / FP32_OPS_PER_S * 1e3
-    emit({"phase": "kernel", "name": "forest_votes", "B": B, "D": D,
+    emit({"phase": "kernel", "name": "forest_votes", "path": path,
+          "B": B, "D": D,
           "T": T, "N": N, "C": C, "max_depth": tables.max_depth,
           "mean_steps": gathers / (B * T), "gathers": gathers,
           "bytes": bytes_moved, "mismatches": mismatches,
@@ -272,6 +305,7 @@ def phase_kernel(feats, model, seed):
             "source": "glia_tpu_torch/ops/cuda/forest_votes.cu",
             "src": "glia_tpu_torch/ops/cuda/forest_votes.cu",
             "replaces": "glia_tpu/ops/pallas/forest.py:108",
+            "path": path, "shape": {"B": B, "D": D, "T": T, "N": N, "C": C},
             "launches": None, "mismatches": mismatches,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -297,30 +331,35 @@ def check_order(order, probs, n_regions, max_key):
         raise AssertionError("merge probabilities outside [0, 1]")
 
 
-def profile_merge_loop(rag, cfg, scorer, dev):
-    """One merge loop under torch.profiler: device kernel time by name,
-    kernels launched, and the device's busy time."""
+def profile_run(fn):
+    """``fn()`` under torch.profiler: device kernel time by name, kernels
+    launched, and the device's busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from glia_tpu_torch.graph.merge_bc_device import merge_order_bc_device
-
-    stats = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        merge_order_bc_device(rag, cfg, scorer, stats=stats, device=dev)
+        fn()
         torch.cuda.synchronize()
     kern = sorted(((e.key, e.self_device_time_total, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda k: -k[1])
-    busy_ms = sum(k[1] for k in kern) / 1e3
-    return {"supersteps": stats["n_supersteps"],
-            "wall_ms_profiled": stats["t_merge_loop"] * 1e3,
-            "device_busy_ms": busy_ms,
+    return {"device_busy_ms": sum(k[1] for k in kern) / 1e3,
             "kernels_launched": sum(k[2] for k in kern),
             "top": [{"name": k[0][:90], "ms": k[1] / 1e3, "count": k[2]}
                     for k in kern[:10]]}
+
+
+def profile_merge_loop(rag, cfg, scorer, dev):
+    """One device_bc merge loop under torch.profiler."""
+    from glia_tpu_torch.graph.merge_bc_device import merge_order_bc_device
+
+    stats = {}
+    prof = profile_run(lambda: merge_order_bc_device(
+        rag, cfg, scorer, stats=stats, device=dev))
+    return {"supersteps": stats["n_supersteps"],
+            "wall_ms_profiled": stats["t_merge_loop"] * 1e3, **prof}
 
 
 def agreement(order1, probs1, order2, probs2):
@@ -363,10 +402,9 @@ def phase_slice(data, model, dev):
         raise AssertionError(f"segmentation shape {seg.shape}")
     if not all(np.isfinite(v) for v in ev.values()):
         raise AssertionError(f"non-finite metrics {ev}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+    if launches["forest_votes"] == 0:
+        raise AssertionError("kernel forest_votes never launched on the "
+                             "device_bc path")
     if launches["forest_votes"] != stats["n_supersteps"]:
         raise AssertionError("forest_votes should launch once per superstep")
 
@@ -428,6 +466,274 @@ def phase_slice(data, model, dev):
     return launches
 
 
+SEGMENT_SUM_RTOL = 1e-5
+
+
+def capture_segment_sums(fn):
+    """Run ``fn()`` and return the (values, ids, n_segments, sorted) of
+    every segment sum the merge engine asked for meanwhile."""
+    import glia_tpu_torch.graph.merge_device as md
+
+    calls = []
+    real = md.segment_sum_auto
+
+    def record(values, seg_ids, n_segments, sorted=False):
+        calls.append((values.contiguous(), seg_ids.long().contiguous(),
+                      int(n_segments), bool(sorted)))
+        return real(values, seg_ids, n_segments, sorted=sorted)
+
+    md.segment_sum_auto = record
+    try:
+        fn()
+    finally:
+        md.segment_sum_auto = real
+    return calls
+
+
+def check_segment_sum(name, values, ids, S, is_sorted):
+    """One shape of kernel B2 against the plain version on the card."""
+    from glia_tpu_torch.ops.cuda import segment_sum_cuda
+    from glia_tpu_torch.ops.segment_csr import segment_sum_torch
+
+    got = segment_sum_cuda(values, ids, S, sorted=is_sorted)
+    again = segment_sum_cuda(values, ids, S, sorted=is_sorted)
+    want = segment_sum_torch(values, ids, S)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    # relative to each sum, with a floor of 1e-6 of the largest sum so
+    # that empty segments (0 on both sides) divide by something
+    floor = 1e-6 * float(want.abs().max()) + 1e-30
+    rel = float((diff / (want.abs() + floor)).max())
+    if not bool(torch.isfinite(got).all()) or rel > SEGMENT_SUM_RTOL:
+        raise AssertionError(f"segment_sum[{name}]: max relative error "
+                             f"{rel} above {SEGMENT_SUM_RTOL}")
+    stable = bool(torch.equal(got, again))
+    if is_sorted and not stable:
+        raise AssertionError(f"segment_sum[{name}]: two launches of the "
+                             f"sorted entry point gave different bits")
+    on_cpu = segment_sum_torch(values.cpu(), ids.cpu(), S)
+    B = values.shape[0]
+    F = values.shape[1] if values.ndim == 2 else 1
+    w = values.element_size()
+    lib_ids = torch.where((ids >= 0) & (ids < S), ids, S)
+    out_shape = (S + 1,) + tuple(values.shape[1:])
+
+    def kernel():
+        return segment_sum_cuda(values, ids, S, sorted=is_sorted)
+
+    def library():
+        return torch.zeros(out_shape, dtype=values.dtype,
+                           device=values.device).index_add_(0, lib_ids,
+                                                            values)
+
+    # device time from CUDA graph replays; call_ms is one eager call as
+    # the merge loop makes it (zeroing, launch and the host's time to
+    # enqueue them)
+    ms = cuda_graph_time_ms(kernel)
+    plain_ms = cuda_graph_time_ms(lambda: segment_sum_torch(values, ids, S))
+    library_ms = cuda_graph_time_ms(library)
+    call_ms = cuda_time_ms(kernel, reps=50)
+    library_call_ms = cuda_time_ms(library, reps=50)
+    # the bound: values and ids read once, the output zeroed and written;
+    # one add per value
+    bytes_moved = B * F * w + 8 * B + 2 * S * F * w
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = B * F / FP32_OPS_PER_S * 1e3
+    res = {"shape": name, "entry": "sorted" if is_sorted else "atomic",
+           "B": B, "F": F, "S": S, "dtype": str(values.dtype),
+           "dropped_rows": int(((ids < 0) | (ids >= S)).sum()),
+           "max_rel_err": rel, "max_abs_err": float(diff.max()),
+           "same_bits_two_launches": stable,
+           "same_bits_as_cpu_index_add": bool(torch.equal(got.cpu(),
+                                                          on_cpu)),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "call_ms": call_ms, "library_call_ms": library_call_ms,
+           "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit({"phase": "kernel", "name": "segment_sum", **res})
+    return res
+
+
+def phase_kernel_segment(data, rag, dev, seed):
+    """Kernel B2 (segment sum), both entry points, float32, at the shapes
+    the engine="device" path gives it on this section (taken from the
+    merge engine's own calls) and at [200000, 8] -> [4096, 8] with random
+    ids, with and without padding ids."""
+    import glia_tpu_torch.graph.merge_device as md
+
+    pb, R = data["pb"], rag.n_regions
+    u, v, s, c = md.edge_mean_arrays(rag, pb)
+    _, _, h = md.edge_hist_arrays(rag, pb, n_bins=32)
+    one = dict(max_supersteps=1, device=dev)
+    mean = capture_segment_sums(
+        lambda: md.merge_batched_device(u, v, s, c, R, **one))
+    median = capture_segment_sums(
+        lambda: md.merge_batched_device_hist(u, v, h, R, **one))
+    minsize = capture_segment_sums(
+        lambda: md.merge_batched_device_hist_minsize(u, v, h, rag.sizes, R,
+                                                     **one))
+    exact = capture_segment_sums(
+        lambda: md.merge_batched_device_exact(u, v, s, c, R, device=dev))
+    cases = [("dedupe_mean", *mean[0]), ("dedupe_median", *median[0]),
+             ("vertex_sizes", *minsize[1]), ("lca_keys", *exact[-2])]
+    if not (mean[0][3] and median[0][3]) or minsize[1][3] or exact[-2][3]:
+        raise AssertionError("the merge engine's segment sums are not the "
+                             "ones this phase expects")
+
+    rng = np.random.default_rng(seed + 2)
+    B, F, S = 200000, 8, 4096
+    vals = torch.as_tensor(rng.random((B, F), np.float32), device=dev)
+    ids = torch.as_tensor(rng.integers(0, S, B), device=dev)
+    padded = ids.clone()
+    padded[torch.as_tensor(rng.random(B) < 0.1, device=dev)] = S + 5
+    padded[:1000] = -1
+    ids_sorted = torch.sort(ids).values
+    sorted_padded = ids_sorted.clone()
+    sorted_padded[:1000] = -1
+    sorted_padded[-10000:] = S
+    cases += [("random", vals, ids, S, False),
+              ("random_padded", vals, padded, S, False),
+              ("random_sorted", vals, ids_sorted, S, True),
+              ("random_sorted_padded", vals, sorted_padded, S, True)]
+    shapes = [check_segment_sum(*case) for case in cases]
+    # the headline numbers are those of the default policy's superstep
+    # (the median sketch's dedupe); every shape is listed beside them
+    head = next(r for r in shapes if r["shape"] == "dedupe_median")
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "glia_tpu_torch/ops/cuda/segment_sum.cu",
+            "src": "glia_tpu_torch/ops/cuda/segment_sum.cu",
+            "replaces": "glia_tpu/ops/pallas/segment_csr.py:47",
+            "launches": None, "shape": head["shape"],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "max_rel_err": max(r["max_rel_err"] for r in shapes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "call_ms": head["call_ms"],
+            "library_call_ms": head["library_call_ms"], "shapes": shapes}
+
+
+def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
+    """hmt_segment(engine="device") on the card for the policies mean and
+    median, forest probabilities by the device walk.  Returns the launch
+    counts of each run and kernel B1's check at this path's batch."""
+    import glia_tpu_torch.graph.merge_device as md
+    from glia_tpu_torch.features.config import FeatureConfig
+    from glia_tpu_torch.features.hierarchical import TreeFeatures
+    from glia_tpu_torch.ops import cuda as kcuda
+    from glia_tpu_torch.pipeline import HmtModel, evaluate, hmt_segment
+
+    pb, intensity, R = data["pb"], data["intensity"], rag.n_regions
+    # set-up: a forest on this path's own features, the 148 columns of
+    # bc_features() with the saliencies
+    t = time.perf_counter()
+    order, sals = md.greedy_merge_device(rag, pb, policy="mean", device=dev)
+    cfg = FeatureConfig.standard(pb, intensity, n_bins=16)
+    X = TreeFeatures(rag, order, cfg, saliencies=sals).bc_features()
+    forest = random_forest(X, n_trees, max_depth,
+                           np.random.default_rng(seed + 3))
+    setup_s = time.perf_counter() - t
+    b1 = phase_kernel(torch.as_tensor(X, device=dev).to(torch.float32)
+                      .contiguous(), forest, seed, path="device")
+
+    u, v, s, c = md.edge_mean_arrays(rag, pb)
+    _, _, h = md.edge_hist_arrays(rag, pb, n_bins=32)
+    paths = {}
+    for policy in ("mean", "median"):
+        hmt = HmtModel(forest=forest, n_bins=16, policy=policy)
+        stats = {}
+        kcuda.reset_launches()
+        t = time.perf_counter()
+        out, info = hmt_segment(pb, intensity, hmt, engine="device",
+                                backend="device", device=dev, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(kcuda.launches)
+        ev = evaluate(out, data["truth"])
+
+        if not np.array_equal(info["seg0"], seg):
+            raise AssertionError("hmt_segment's over-segmentation differs "
+                                 "from the data phase's")
+        check_order(info["order"], info["probs"], R, int(rag.keys.max()))
+        if out.shape != pb.shape:
+            raise AssertionError(f"segmentation shape {out.shape}")
+        if not all(np.isfinite(x) for x in ev.values()):
+            raise AssertionError(f"non-finite metrics {ev}")
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"device path (policy {policy})")
+        if launches["forest_votes"] != 1:
+            raise AssertionError("forest_votes should launch once")
+        if launches["segment_sum"] < stats["n_supersteps"]:
+            raise AssertionError("segment_sum should launch in every "
+                                 "superstep")
+
+        # the merge alone, twice more: do two card runs agree, and with
+        # the main path's order
+        runs = [md.greedy_merge_device(rag, pb, policy=policy, device=dev)
+                for _ in range(2)]
+        rerun = agreement(*runs[0], *runs[1])
+        rerun["order_equals_main_path"] = bool(
+            np.array_equal(runs[0][0], info["order"]))
+
+        # the merge loop alone: wall, then kernels and busy time profiled
+        def merge_loop(st):
+            if policy == "mean":
+                md.merge_batched_device(u, v, s, c, R, device=dev, stats=st)
+            else:
+                md.merge_batched_device_hist(u, v, h, R, device=dev,
+                                             stats=st)
+            torch.cuda.synchronize()
+
+        loop_stats = {}
+        t = time.perf_counter()
+        merge_loop(loop_stats)
+        loop_s = time.perf_counter() - t
+        prof = profile_run(lambda: merge_loop({}))
+        n_steps = loop_stats["n_supersteps"]
+        prof.update(
+            supersteps=n_steps, wall_ms_unprofiled=loop_s * 1e3,
+            kernels_per_superstep=prof["kernels_launched"] / n_steps,
+            busy_share_of_unprofiled_wall=prof["device_busy_ms"]
+            / (loop_s * 1e3))
+
+        line = {"phase": "slice_device", "policy": policy, "wall_s": wall,
+                "stages_s": {k: x for k, x in stats.items()
+                             if k.startswith("t_")},
+                "R": R, "E": int(len(u)), "D": int(X.shape[1]),
+                "supersteps": stats["n_supersteps"],
+                "merges": int(len(info["order"])),
+                "n_picks": info["n_picks"], "launches": launches,
+                "merge_loop_profile": prof, "rerun": rerun, "eval": ev}
+        if policy == "mean":
+            # exact saliencies on the card (float32) against the serial
+            # host replay (float64) of the same order
+            o, _, n_m = md.merge_batched_device(u, v, s, c, R, device=dev)
+            ex = md.exact_saliency_device(u, v, s, c, o, R, device=dev)
+            ex = ex[:n_m].double().cpu().numpy()
+            host = md.replay_exact_saliency(u, v, s, c,
+                                            o[:n_m].cpu().numpy())
+            if not np.array_equal(np.isnan(ex), np.isnan(host)):
+                raise AssertionError("exact saliencies: NaN rows differ "
+                                     "from the serial replay's")
+            ok = ~np.isnan(host)
+            rel = float(np.max(np.abs(ex[ok] - host[ok])
+                               / np.maximum(np.abs(host[ok]), 1e-12)))
+            if rel > 1e-4:
+                raise AssertionError(f"exact saliencies differ from the "
+                                     f"serial replay by {rel} relative")
+            line["exact_saliency"] = {"sal_L": stats["sal_L"],
+                                      "nan_rows": int((~ok).sum()),
+                                      "max_rel_err_vs_replay": rel}
+        emit(line)
+        paths[f"device_{policy}"] = launches
+    emit({"phase": "slice_device", "setup_s": setup_s,
+          "forest": {"trees": forest.n_trees,
+                     "nodes_padded": int(forest.feature.shape[1]),
+                     "max_depth": forest.max_depth}})
+    return paths, b1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=1024)
@@ -444,12 +750,25 @@ def main(argv=None):
     dev = torch.device("cuda")
     smi = phase_env()
     phase_build()
-    data, feats, model = phase_data(args.side, args.seed, args.trees,
-                                    args.depth, dev)
-    kernels = [phase_kernel(feats, model, args.seed)]
-    launches = phase_slice(data, model, dev)
+    data, seg, rag, feats, model = phase_data(args.side, args.seed,
+                                              args.trees, args.depth, dev)
+    b1 = phase_kernel(feats, model, args.seed)
+    b2 = phase_kernel_segment(data, rag, dev, args.seed)
+    paths = {"device_bc": phase_slice(data, model, dev)}
+    device_paths, b1_device = phase_slice_device(
+        data, seg, rag, dev, args.seed, args.trees, args.depth)
+    paths.update(device_paths)
+    # one line per kernel: B1's headline numbers are the device_bc batch's,
+    # with the engine="device" batch listed beside them
+    sub = ("path", "shape", "mismatches", "max_abs_err", "ms", "plain_ms",
+           "bound_ms", "bound_by")
+    b1["shapes"] = [{k: r[k] for k in sub} for r in (b1, b1_device)]
+    b1["mismatches"] += b1_device["mismatches"]
+    b1["max_abs_err"] = max(b1["max_abs_err"], b1_device["max_abs_err"])
+    kernels = [b1, b2]
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,3 +19,25 @@ FEPS = 2.22e-16
 # classification.  Must never collide with a real label; real labels are
 # int32 >= 0.
 OOB_LABEL = np.int32(-1)
+
+
+def sdivide(lhs, rhs, dummy=0.0):
+    """Safe division (glia_base.hxx:77-79): lhs/rhs if |rhs| >= FEPS else dummy.
+
+    Works on scalars and numpy arrays.
+    """
+    if np.isscalar(rhs):
+        return lhs / rhs if abs(rhs) >= FEPS else dummy
+    rhs = np.asarray(rhs)
+    safe = np.abs(rhs) >= FEPS
+    out = np.divide(lhs, np.where(safe, rhs, 1.0))
+    return np.where(safe, out, dummy)
+
+
+def slog(x, dummy=0.0):
+    """Safe natural log (glia_base.hxx:81): log(x) if x >= FEPS else dummy."""
+    if np.isscalar(x):
+        return np.log(x) if x >= FEPS else dummy
+    x = np.asarray(x)
+    safe = x >= FEPS
+    return np.where(safe, np.log(np.where(safe, x, 1.0)), dummy)

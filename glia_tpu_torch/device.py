@@ -37,3 +37,10 @@ def default_dtype(device: torch.device,
     if dtype is not None:
         return dtype
     return torch.float32 if device.type == "cuda" else torch.float64
+
+
+def synchronize(device: torch.device):
+    """Wait for the device's queued work (a no-op on the CPU), so that a
+    host clock read next measures the work and not its enqueueing."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

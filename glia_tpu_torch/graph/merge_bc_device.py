@@ -41,11 +41,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, default_dtype, resolve_device
+from ..device import (DeviceLike, default_dtype, resolve_device,
+                      synchronize)
 from ..features.config import FeatureConfig
 from ..features.device import (DeviceFeatureSpec, bc_features_dev,
                                counting_hist)
 from ..features.hierarchical import group_stats
+from .merge_device import order_to_keys
 from .rag import Rag
 
 POS_INF = np.inf
@@ -672,11 +674,6 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
     return st, rows, probs, ok, n_left, n_scored
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def merge_order_bc_device(rag: Rag, cfg: FeatureConfig,
                           predict_fn: Callable[[torch.Tensor], torch.Tensor],
                           max_supersteps: Optional[int] = None,
@@ -701,7 +698,7 @@ def merge_order_bc_device(rag: Rag, cfg: FeatureConfig,
     t0 = time.perf_counter()
     state_np, static = build_state(rag, cfg)
     state = state_to_device(state_np, dev, dt)
-    _sync(dev)
+    synchronize(dev)
     t1 = time.perf_counter()
     if max_supersteps is None:
         max_supersteps = 4 * int(np.ceil(np.log2(max(static.R, 2)))) + 16
@@ -732,13 +729,4 @@ def merge_order_bc_device(rag: Rag, cfg: FeatureConfig,
                      E=static.E, feat_dim=static.feat_dim,
                      t_build_state=t1 - t0, t_merge_loop=t2 - t1)
 
-    # dense ids -> label keys (same scheme as glia_tpu's order_to_keys)
-    max_key = int(rag.keys.max()) if R else 0
-    out = np.empty_like(order_dense)
-    for j in range(2):
-        col = order_dense[:, j]
-        out[:, j] = np.where(col < R, rag.keys[np.minimum(col, R - 1)],
-                             max_key + 1 + (col - R))
-    out[:, 2] = max_key + 1 + order_dense[:, 2] - R
-    out[:, :2] = np.sort(out[:, :2], axis=1)
-    return out, sals
+    return order_to_keys(order_dense, n_m, rag), sals

@@ -1,0 +1,896 @@
+"""On-device greedy merge by boundary statistic (pb policies), PyTorch.
+
+Counterpart of glia_tpu.graph.merge_device's single-phase fused engine.
+The reference's hot loop is a serial priority queue
+(code/type/boundary_table.hxx:122-167).  Here every superstep runs
+depth-limited Boruvka star/chain contraction over the whole edge list:
+every region selects its minimum incident edge (ties by lowest edge
+index); each component of the selection forest holds exactly one
+mutual-minimum 2-cycle (its root); every vertex within ``dmax`` parent
+hops of its root attaches this superstep, emitted as a chain of binary
+(r0, r1, r2) triples in (statistic, hop) order, so parents attach before
+children; the remaining edges are rekeyed and duplicate pairs are combined
+by one sort and one segment sum.  O(log R) supersteps on typical RAGs.
+
+All three of the reference's saliency policies ride the same superstep
+through an additive per-edge payload: (sum, count) for the pooled mean,
+a histogram sketch for the approximate median, and for median * minsize
+the sketch plus region sizes pooled per vertex.  The exact merge-time
+pooled means of a finished order come from one LCA-keyed segment sum
+(``exact_saliency_device``); exact medians from a serial host replay.
+
+Regions are dense indices [0, R); merged regions get fresh ids R, R+1, ...
+so the emitted order aligns with the reference's key scheme when composed
+with the RAG's key table (``order_to_keys``).
+
+The supersteps run as a Python loop with one host read each (the loop
+condition).  Every segment sum goes through ``segment_sum_auto``: the
+hand-written CUDA kernel on the card, ``index_add_`` on the CPU.  Indices
+are int64 tensors.  Not here yet: the serial, chunked and multi-phase
+engines of the reference.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..device import (DeviceLike, default_dtype, resolve_device,
+                      synchronize)
+from ..ops.segment_csr import segment_sum_auto
+
+BIG32 = 2 ** 31 - 1
+
+_NOT_PORTED_MODE = (
+    "merge mode {mode!r} is not ported yet (only the single-phase "
+    "mode='fused' is): ROADMAP.md, modules to port, item 5")
+
+
+def _require_fused(mode):
+    if mode in ("fused_ms", "chunked"):
+        raise NotImplementedError(_NOT_PORTED_MODE.format(mode=mode))
+    if mode != "fused":
+        raise ValueError(f"merge mode {mode!r} (fused)")
+
+
+# ---------------------------------------------------------------------------
+# host packing of the RAG
+# ---------------------------------------------------------------------------
+
+def edge_mean_arrays(rag, pb_image):
+    """Per-edge (sum, count) of boundary pb + dense endpoint indices."""
+    pb = np.asarray(pb_image, dtype=np.float64).ravel()
+    E = rag.n_edges
+    eid = np.repeat(np.arange(E), np.diff(rag.edge_ptr))
+    s = np.bincount(eid, weights=pb[rag.edge_pixels], minlength=E)
+    c = np.diff(rag.edge_ptr).astype(np.float64)
+    u = rag.key_index(rag.edges[:, 0]).astype(np.int32)
+    v = rag.key_index(rag.edges[:, 1]).astype(np.int32)
+    return u, v, s, c
+
+
+def edge_hist_arrays(rag, pb_image, n_bins=32, lo=0.0, hi=1.0):
+    """Per-edge boundary-pb histogram sketch [E, n_bins] + endpoints.
+
+    The histogram is the mergeable sketch for the approx-median policy:
+    histograms add under splicing, and the upper median is read off the
+    cumulative counts to bin resolution."""
+    pb = np.asarray(pb_image, dtype=np.float64).ravel()
+    E = rag.n_edges
+    eid = np.repeat(np.arange(E), np.diff(rag.edge_ptr))
+    vals = pb[rag.edge_pixels]
+    bins = np.clip(((vals - lo) / (hi - lo) * n_bins).astype(np.int64),
+                   0, n_bins - 1)
+    h = np.zeros((E, n_bins))
+    np.add.at(h, (eid, bins), 1.0)
+    u = rag.key_index(rag.edges[:, 0]).astype(np.int32)
+    v = rag.key_index(rag.edges[:, 1]).astype(np.int32)
+    return u, v, h
+
+
+# ---------------------------------------------------------------------------
+# merge statistics of a payload
+# ---------------------------------------------------------------------------
+
+def hist_median_stat(h: torch.Tensor, lo=0.0, hi=1.0) -> torch.Tensor:
+    """Approx upper median from histogram rows: bin center of the first
+    bin whose cumulative count exceeds n//2 (amedian = sorted[n//2]).  An
+    empty row reads bin 0."""
+    n_bins = h.shape[-1]
+    k = torch.div(h.sum(dim=-1), 2.0, rounding_mode="floor")
+    cum = torch.cumsum(h, dim=-1)
+    # argmax returns the first maximum: the first bin above k
+    idx = torch.argmax((cum > k[..., None]).to(torch.int32), dim=-1)
+    width = (hi - lo) / n_bins
+    return lo + (idx.to(h.dtype) + 0.5) * width
+
+
+def _mean_stat_packed(payload):
+    """Mean over a single packed [E, 2] (sum, count) payload."""
+    (sc,) = payload
+    return sc[:, 0] / torch.clamp(sc[:, 1], min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the fused single-phase engine
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _FusedStatic:
+    """Sizes and options of one merge run (fixed over its supersteps)."""
+
+    stat_fn: Callable
+    E: int
+    R: int
+    dmax: int
+    with_vsz: bool
+    # hop count and root of a vertex pack into one integer h*(n_ids+1)+rt
+    # (one gather per hop instead of two), and the emission sort's three
+    # keys into one int64, while (dmax+2)*(n_ids+1) < 2**31; beyond that
+    # both fall back to their unpacked forms
+    pack_hr: bool
+
+    @property
+    def max_m(self) -> int:
+        return max(self.R - 1, 1)
+
+    @property
+    def n_ids(self) -> int:
+        return self.R + self.max_m
+
+
+def _scatter_min_(target, index, src):
+    """target[index[i]] = min(target[index[i]], src[i]) in place; the
+    target's fill takes part (include_self)."""
+    return target.scatter_reduce_(0, index, src, "amin", include_self=True)
+
+
+def _first_of_runs(*sorted_keys):
+    """Mask of the rows that start a run of equal key tuples."""
+    dev = sorted_keys[0].device
+    change = sorted_keys[0][1:] != sorted_keys[0][:-1]
+    for k in sorted_keys[1:]:
+        change = change | (k[1:] != k[:-1])
+    return torch.cat([torch.ones(1, dtype=torch.bool, device=dev), change])
+
+
+def _stat_bits(stat, alive):
+    """The order of statistics: the int32 bit pattern of the float32 value
+    (monotone for floats >= 0), also when the payload is float64; dead
+    edges read ``BIG32``, above the bits of inf.  Float32 denormals count
+    as 0, as in glia_tpu: XLA flushes them to zero on the CPU, and the
+    TPU has none."""
+    p32 = stat.to(torch.float32)
+    p32 = torch.where(p32.abs() < torch.finfo(torch.float32).tiny, 0.0, p32)
+    return torch.where(alive, p32.view(torch.int32).long(), BIG32)
+
+
+def fused_superstep(st: _FusedStatic, n_m: int, u, v, payload, vstate,
+                    alive, order, sal):
+    """One superstep of the fused engine, a plain function on tensors.
+
+    ``n_m`` merges are recorded so far; ``order`` [max_m + 1, 3] and
+    ``sal`` [max_m + 1] are updated in place (their last row is the dump
+    slot of rows not recorded).  Returns (u, v, payload, vstate, alive,
+    n_new) with ``n_new`` the number of merges recorded, as a tensor."""
+    E, R, dmax, max_m, n_ids = st.E, st.R, st.dmax, st.max_m, st.n_ids
+    dev = u.device
+    idx = torch.arange(E, device=dev)
+    vid = torch.arange(n_ids, device=dev)
+    if st.with_vsz:
+        stat = st.stat_fn(payload, u, v, vstate[0])
+    else:
+        stat = st.stat_fn(payload)
+    stat = torch.where(alive, stat, float("inf"))
+    bits = _stat_bits(stat, alive)
+
+    # --- per-vertex minimum incident edge m(v), ties by edge index ---
+    rbits = torch.full((n_ids,), BIG32, dtype=torch.int64, device=dev)
+    _scatter_min_(rbits, u, bits)
+    _scatter_min_(rbits, v, bits)
+    at_min_u = alive & (rbits[u] == bits)
+    at_min_v = alive & (rbits[v] == bits)
+    m = torch.full((n_ids,), E, dtype=torch.int64, device=dev)
+    _scatter_min_(m, u, torch.where(at_min_u, idx, E))
+    _scatter_min_(m, v, torch.where(at_min_v, idx, E))   # [n_ids]; E = none
+    uv_pad = torch.cat([torch.stack([u, v], dim=1),
+                        torch.full((1, 2), n_ids, dtype=torch.int64,
+                                   device=dev)])
+    muv = uv_pad[m]
+    mu, mv = muv[:, 0], muv[:, 1]
+    parent = torch.where(m < E, torch.where(mu == vid, mv, mu), vid)
+
+    # --- roots: canonical vertex of each mutual-minimum 2-cycle ---
+    is_root = (parent[parent] == vid) & (vid < parent)
+
+    # --- depth-limited hop counts + root propagation ---
+    if st.pack_hr:
+        W = n_ids + 1
+        inf_h = dmax + 1
+        known_lim = inf_h * W
+        code = torch.where(is_root, vid, known_lim + n_ids)
+        for _ in range(dmax):
+            cp = code[parent]
+            code = torch.where(code < known_lim, code,
+                               torch.where(cp < known_lim, cp + W, code))
+        h = code // W
+        rt = torch.where(code < known_lim, code % W, n_ids)
+    else:
+        inf_h = n_ids + 7
+        h = torch.where(is_root, 0, inf_h)
+        rt = torch.where(is_root, vid, n_ids)
+        for _ in range(dmax):
+            hp = h[parent]
+            h = torch.minimum(h, torch.where(hp < inf_h, hp + 1, inf_h))
+            rt = torch.where(rt < n_ids, rt, rt[parent])
+    attach = (h >= 1) & (h <= dmax) & (m < E)
+
+    # --- order vertices by (component, edge stat, hop, id) ---
+    # stat(m(child)) >= stat(m(parent)) always (m(v) is incident to
+    # parent(v), whose m is ITS minimum incident edge), so stat-major
+    # order still attaches parents before children (hop breaks stat
+    # ties) AND makes each chain monotone non-decreasing in stat -- the
+    # monotonized threshold cut then judges every attach by exactly its
+    # own edge's statistic, like the serial order.
+    bits_pad = torch.cat([bits, bits.new_full((1,), BIG32)])
+    mbits = bits_pad[m]
+    rt_key = torch.where(attach | is_root, rt, n_ids)
+    b_key = torch.where(attach, mbits, -2 ** 31) + 2 ** 31   # roots first
+    h_key = torch.where(attach | is_root, h, inf_h)
+    # the vertex id is the last key: the sorts are stable and start from
+    # the vertices in id order
+    if st.pack_hr:
+        key = (rt_key * 2 ** 32 + b_key) * (inf_h + 1) + h_key
+        vs = torch.sort(key, stable=True).indices
+    else:
+        vs = torch.sort(h_key, stable=True).indices
+        vs = vs[torch.sort(b_key[vs], stable=True).indices]
+        vs = vs[torch.sort(rt_key[vs], stable=True).indices]
+    rt_s = rt_key[vs]
+    h_s = h_key[vs]
+    is_merge = (rt_s < n_ids) & (h_s >= 1)              # attached rows
+    grank = torch.cumsum(is_merge.long(), 0) - 1
+    first = _first_of_runs(rt_s)
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    first_in_run = is_merge & (torch.cat([true1, ~is_merge[:-1]]) | first)
+    r2 = R + n_m + grank
+    r0 = torch.where(first_in_run, rt_s, r2 - 1)
+    ok = is_merge & (n_m + grank < max_m)
+    n_new = ok.sum()
+
+    # saliency: the attached vertex's own selected edge's statistic
+    m_s = m[vs]
+    stat_pad = torch.cat([stat, stat.new_zeros(1)])
+    sal_rows = -stat_pad[m_s]
+
+    # rows not recorded all write the same values to the dump slot max_m
+    slot = torch.where(ok, n_m + grank, max_m)
+    rows = torch.stack([r0, vs, r2], dim=1)
+    order[slot] = torch.where(ok[:, None], rows, -1)
+    sal[slot] = torch.where(ok, sal_rows.to(sal.dtype), 0.0)
+
+    # --- component final id lut (last merge of each run) ---
+    run_id = torch.cumsum(first.long(), 0) - 1
+    last_rank = torch.full((n_ids + 1,), -1, dtype=torch.int64, device=dev)
+    last_rank.scatter_reduce_(0, run_id, torch.where(ok, grank, -1), "amax",
+                              include_self=True)
+    last = last_rank[run_id]
+    fin = R + n_m + last
+    # only vertices whose own attach was RECORDED (ok is a prefix of the
+    # global merge ranks, hence of each run's hop-ordered chain) plus the
+    # run root are contracted; overflowed attaches stay put
+    contracted = (rt_s < n_ids) & (last >= 0) & (ok | (h_s == 0))
+    # (id n_ids-1 is a safe dump slot: ids allocated so far are
+    # < R + n_m < n_ids - 1 while the loop still runs)
+    lut = vid.clone()
+    lut[torch.where(contracted, vs, n_ids - 1)] = torch.where(
+        contracted, fin, n_ids - 1)
+
+    # consumed edges: each attached-and-recorded vertex's m edge
+    used = torch.zeros(E + 1, dtype=torch.bool, device=dev)
+    used[torch.where(ok, m_s, E)] = ok
+    u2 = lut[u]
+    v2 = lut[v]
+    alive2 = alive & ~used[:E] & (u2 != v2)
+
+    # --- dedupe duplicate pairs: a stable sort on the packed (lo, hi)
+    # key, so the first of a run of duplicates is the lowest edge index;
+    # then one segment sum over the runs, whose ids are sorted ---
+    lo_k = torch.where(alive2, torch.minimum(u2, v2), n_ids)
+    hi_k = torch.where(alive2, torch.maximum(u2, v2), idx)
+    perm = torch.sort(lo_k * (max(n_ids, E) + 1) + hi_k,
+                      stable=True).indices
+    u3 = u2[perm]
+    v3 = v2[perm]
+    alive_s = alive2[perm]
+    pfirst = _first_of_runs(lo_k[perm], hi_k[perm])
+    seg_id = torch.cumsum(pfirst.long(), 0) - 1
+    keep = pfirst & alive_s
+    combined = []
+    for p in payload:
+        ps = p[perm]
+        am = alive_s[:, None] if ps.ndim == 2 else alive_s
+        km = keep[:, None] if ps.ndim == 2 else keep
+        pseg = segment_sum_auto(torch.where(am, ps, 0.0), seg_id, E,
+                                sorted=True)
+        combined.append(torch.where(km, pseg[seg_id], ps))
+    if st.with_vsz:
+        # vertex payload (region sizes) pools additively through the
+        # component lut: one segment sum per superstep
+        vstate = tuple(segment_sum_auto(z, lut, n_ids) for z in vstate)
+    return u3, v3, tuple(combined), vstate, alive_s & keep, n_new
+
+
+def _as_tensor(a, dev):
+    """``a`` on ``dev``: a tensor as it is, anything else through a numpy
+    copy (arrays handed in may be read-only)."""
+    if torch.is_tensor(a):
+        return a.to(dev)
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+def _as_index(a, dev):
+    return _as_tensor(a, dev).long()
+
+
+def _as_float(a, dev, dtype):
+    return _as_tensor(a, dev).to(dtype)
+
+
+def _fused_merge_core(u, v, payload, stat_fn, n_regions, max_supersteps,
+                      dtype, device, dmax=4, stats=None, vsizes=None,
+                      pack_hr=None):
+    """Single-phase batched merge: supersteps at full edge capacity until
+    no edge is alive, every merge is recorded or ``max_supersteps`` is
+    reached.  vsizes (optional [R]): additive per-vertex payload (region
+    sizes) made available to ``stat_fn(payload, u, v, vsz)`` -- the
+    median * minsize policy's carrier.  ``pack_hr=False`` forces the
+    unpacked hop and sort forms that ids beyond the packing bound take
+    (for tests).
+
+    Returns (order [max_m, 3] int64 dense triples, rows beyond n_merges
+    -1; saliencies [max_m] = -stat; n_merges), tensors on ``device``."""
+    E = len(u)
+    R = int(n_regions)
+    max_m = max(R - 1, 1)
+    n_ids = R + max_m
+    fits = (int(dmax) + 2) * (n_ids + 1) < 2 ** 31
+    st = _FusedStatic(stat_fn=stat_fn, E=E, R=R, dmax=int(dmax),
+                      with_vsz=vsizes is not None,
+                      pack_hr=fits and pack_hr is not False)
+    u_d = _as_index(u, device)
+    v_d = _as_index(v, device)
+    payload_d = tuple(_as_float(p, device, dtype) for p in payload)
+    vstate = ()
+    if st.with_vsz:
+        vsz = torch.zeros(n_ids, dtype=dtype, device=device)
+        vsz[:R] = _as_float(vsizes, device, dtype)
+        vstate = (vsz,)
+    alive = torch.ones(E, dtype=torch.bool, device=device)
+    order = torch.full((max_m + 1, 3), -1, dtype=torch.int64, device=device)
+    sal = torch.zeros(max_m + 1, dtype=dtype, device=device)
+    n_m, steps, any_alive = 0, 0, E > 0
+    while steps < max_supersteps and any_alive and n_m < max_m:
+        u_d, v_d, payload_d, vstate, alive, n_new = fused_superstep(
+            st, n_m, u_d, v_d, payload_d, vstate, alive, order, sal)
+        steps += 1
+        # the one host read of the superstep: the loop condition
+        n_new_h, any_alive = torch.stack(
+            [n_new, alive.any().long()]).tolist()
+        n_m += n_new_h
+    if stats is not None:
+        stats["n_supersteps"] = steps
+        stats["buckets"] = [E]
+    return order[:max_m], sal[:max_m], n_m
+
+
+def merge_batched_device(u, v, s, c, n_regions, max_supersteps=256,
+                         dtype: Optional[torch.dtype] = None, stats=None,
+                         mode="fused", dmax=4, device: DeviceLike = None):
+    """Batched superstep merge, pooled-mean policy.
+
+    Per-edge data (s, c) = (sum, count) of boundary pb; statistic = s/c
+    (util/struct_merge.hxx:38-85 semantics under splice-as-sum).
+    ``mode="fused"`` runs depth-``dmax`` chain contraction per superstep
+    at full edge capacity; the reference's other modes are not ported.
+    Returns (order, saliencies, n_merges)."""
+    _require_fused(mode)
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)], dim=1)
+    return _fused_merge_core(u, v, (sc,), _mean_stat_packed, n_regions,
+                             max_supersteps, dt, dev, dmax=dmax, stats=stats)
+
+
+def merge_batched_device_hist(u, v, h, n_regions, max_supersteps=256,
+                              lo=0.0, hi=1.0,
+                              dtype: Optional[torch.dtype] = None,
+                              stats=None, mode="fused", dmax=4,
+                              device: DeviceLike = None):
+    """Batched superstep merge on histogram sketches (approx-median
+    policy).  h: [E, n_bins] per-edge boundary histograms, which splice
+    additively; the statistic is the sketch's upper median.
+    Returns (order, saliencies=-stat, n_merges)."""
+    _require_fused(mode)
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+
+    def stat_fn(payload):
+        (hh,) = payload
+        return hist_median_stat(hh, lo, hi)
+
+    return _fused_merge_core(u, v, (h,), stat_fn, n_regions, max_supersteps,
+                             dt, dev, dmax=dmax, stats=stats)
+
+
+def merge_batched_device_hist_minsize(u, v, h, sizes, n_regions,
+                                      max_supersteps=256, lo=0.0, hi=1.0,
+                                      dtype: Optional[torch.dtype] = None,
+                                      stats=None, mode="fused", dmax=4,
+                                      device: DeviceLike = None):
+    """Batched superstep merge, median * minsize policy
+    (util/struct_merge.hxx:141-185): statistic = (approx) boundary median
+    from the additive histogram sketch TIMES the smaller endpoint
+    region's size -- sizes ride as an additive per-VERTEX payload pooled
+    through the component lut each superstep (start-of-superstep values,
+    like every other statistic input).  sizes: [R] leaf region sizes.
+    Returns (order, saliencies=-stat, n_merges)."""
+    _require_fused(mode)
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+
+    def stat_fn(payload, uu, vv, vsz):
+        (hh,) = payload
+        return hist_median_stat(hh, lo, hi) * torch.minimum(vsz[uu], vsz[vv])
+
+    return _fused_merge_core(u, v, (h,), stat_fn, n_regions, max_supersteps,
+                             dt, dev, dmax=dmax, stats=stats, vsizes=sizes)
+
+
+# ---------------------------------------------------------------------------
+# exact merge-time saliencies
+# ---------------------------------------------------------------------------
+
+# the last depth capacity L that converged, per (E, M, R, dtype), for the
+# life of the process
+_EXACT_SAL_L = {}
+
+
+def _exact_saliency_pass(u, v, s, c, order, R, L):
+    """One LCA pass at depth capacity ``L`` (see exact_saliency_device).
+    Returns (stat [M], converged flag as a tensor)."""
+    E, M = u.shape[0], order.shape[0]
+    dev = u.device
+    # table slot n_ids is a dummy: padded order rows (r2 < 0, the fused
+    # engine's unfilled buffer tail) scatter there and self-loop
+    n_ids = R + M
+    vid = torch.arange(n_ids + 1, device=dev)
+    ok_row = order[:, 2] >= 0
+    r0 = torch.where(ok_row, order[:, 0], n_ids)
+    r1 = torch.where(ok_row, order[:, 1], n_ids)
+    r2 = torch.where(ok_row, order[:, 2], n_ids)
+    parent = vid.clone()
+    parent[r0] = r2
+    parent[r1] = r2
+    # --- doubling: anc[k] = 2^k-th ancestor, depth = steps to root ---
+    anc = [parent]
+    depth = (parent != vid).long()
+    p = parent
+    for _ in range(L - 1):
+        depth = depth + depth[p]
+        p = p[p]
+        anc.append(p)
+    root = anc[-1]
+    converged = (parent[root] == root).all()
+
+    # --- per-edge LCA: lift the deeper endpoint, then descend together ---
+    da = depth[u]
+    db = depth[v]
+    swap = db > da
+    a = torch.where(swap, v, u)
+    b = torch.where(swap, u, v)
+    diff = (da - db).abs()
+    for k in range(L - 1, -1, -1):
+        lift = ((diff >> k) & 1) > 0
+        a = torch.where(lift, anc[k][a], a)
+    same = a == b
+    for k in range(L - 1, -1, -1):
+        ka = anc[k][a]
+        kb = anc[k][b]
+        go = ~same & (ka != kb)
+        a = torch.where(go, ka, a)
+        b = torch.where(go, kb, b)
+    lca = torch.where(same, a, anc[0][a])
+    valid = root[u] == root[v]
+
+    # --- exact pooled (s, c) per merge node = LCA-keyed segment sum; the
+    # last of the n_ids + 1 segments is the discard ---
+    seg = torch.where(valid, lca, n_ids)
+    s_tot = segment_sum_auto(torch.where(valid, s, 0.0), seg, n_ids + 1)
+    c_tot = segment_sum_auto(torch.where(valid, c, 0.0), seg, n_ids + 1)
+    cm = c_tot[r2]
+    sm = s_tot[r2]
+    stat = torch.where(ok_row & (cm > 0), sm / torch.clamp(cm, min=1.0),
+                       float("nan"))
+    return stat, converged
+
+
+def exact_saliency_device(u, v, s, c, order, n_regions,
+                          dtype: Optional[torch.dtype] = None,
+                          device: DeviceLike = None, stats=None):
+    """Exact merge-time pooled-mean statistics of a merge order, computed
+    on the device (the replacement for the serial host replay,
+    ``replay_exact_saliency``).
+
+    The identity: the boundary the serial engine pops at merge m
+    (boundary_table.hxx:122-167) is exactly the base edges whose
+    endpoints' merge-tree lowest common ancestor is m.  So the exact
+    merge-time pooled (s, c) of every merge is one segment sum of
+    base-edge payloads keyed by tree LCA; the LCA comes from binary
+    lifting (O(E log R) gathers, no serial pass).
+
+    The number of doubling rounds L is a depth capacity, not derived from
+    n_ids: fused-engine trees are shallow (depth <= dmax * supersteps), so
+    the pass starts from the last L that converged for this shape (8 at
+    first, which covers depth 128) and doubles it while some 2^(L-1)-th
+    ancestor is not yet a root.
+
+    order: [M, 3] dense-index triples (r0, r1, r2), a tensor or an array;
+    rows with r2 < 0 (the fused engine's unfilled buffer tail) are ignored
+    and return NaN, so the engine's order buffer can be passed as it is.
+    A merge whose popped boundary is empty (non-adjacent pair row) also
+    gets NaN, matching the host replay.  Returns stat [M] as a tensor
+    (saliency = -stat); ``stats``, when passed, receives ``sal_L``."""
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    order = _as_index(order, dev).reshape(-1, 3)
+    M = int(order.shape[0])
+    R = int(n_regions)
+    if M == 0:
+        return torch.zeros(0, dtype=dt, device=dev)
+    n_ids = R + M
+    L_full = max(1, int(np.ceil(np.log2(max(n_ids, 2)))))
+    shape_key = (len(u), M, R, str(dt))
+    L = _EXACT_SAL_L.get(shape_key, min(8, L_full))
+    u_d = _as_index(u, dev)
+    v_d = _as_index(v, dev)
+    s_d = _as_float(s, dev, dt)
+    c_d = _as_float(c, dev, dt)
+    while True:
+        stat, converged = _exact_saliency_pass(u_d, v_d, s_d, c_d, order,
+                                               R, L)
+        if bool(converged) or L >= L_full:
+            break
+        L = min(2 * L, L_full)
+    _EXACT_SAL_L[shape_key] = L
+    if stats is not None:
+        stats["sal_L"] = L
+    return stat
+
+
+def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
+                               max_supersteps=256,
+                               dtype: Optional[torch.dtype] = None,
+                               stats=None, device: DeviceLike = None):
+    """Pooled-mean merge and the exact merge-time saliencies, both on the
+    device with the order never leaving it: the merge, then the LCA-keyed
+    segment sums over its order buffer, then the exact value wherever it
+    is defined.
+
+    Returns (order [max_m, 3] dense triples, saliencies with exact
+    merge-time pooled means where defined, n_merges).  ``stats``, when
+    passed, also receives the wall seconds of the two stages
+    (t_merge_loop, t_exact_saliency)."""
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    st = stats if stats is not None else {}
+    u_d = _as_index(u, dev)
+    v_d = _as_index(v, dev)
+    s_d = _as_float(s, dev, dt)
+    c_d = _as_float(c, dev, dt)
+    t0 = time.perf_counter()
+    order, sal, n_m = merge_batched_device(
+        u_d, v_d, s_d, c_d, n_regions, dmax=dmax,
+        max_supersteps=max_supersteps, dtype=dt, stats=st, device=dev)
+    synchronize(dev)
+    t1 = time.perf_counter()
+    ex = exact_saliency_device(u_d, v_d, s_d, c_d, order, n_regions,
+                               dtype=dt, device=dev, stats=st)
+    sal = torch.where(torch.isnan(ex), sal, -ex)
+    synchronize(dev)
+    st["t_merge_loop"] = t1 - t0
+    st["t_exact_saliency"] = time.perf_counter() - t1
+    return order, sal, n_m
+
+
+# ---------------------------------------------------------------------------
+# host side: threshold cuts and serial replays of an order
+# ---------------------------------------------------------------------------
+
+def threshold_cut(order, stats, tau):
+    """Consistent threshold cut of a (possibly non-monotone) merge
+    hierarchy: select merge m iff its *monotonized* statistic
+    max(stat[m], stats of the merges that built its inputs) <= tau.
+
+    The batched superstep engine emits merges grouped by rounds, so its
+    sequence is not sorted by statistic; cutting by count mixes weak and
+    strong boundaries.  The monotonized-threshold cut is the correct way
+    to extract "merge everything weaker than tau" from any merge
+    hierarchy (equals the prefix cut for a serial sorted order).
+    Returns a boolean mask over merges (prefix-closed by construction).
+
+    The monotonized statistic is the max over each merge's subtree of
+    merge rows, found by pointer jumping: O(n log depth) whatever the
+    chain length."""
+    order = np.asarray(order).reshape(-1, 3)
+    stats = np.asarray(stats, dtype=np.float64)
+    n = len(order)
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    hi = int(max(order[:, 2].max(), order[:, :2].max())) + 2
+    lut = np.full(hi, -1, dtype=np.int64)
+    lut[order[:, 2]] = np.arange(n)
+    c0 = lut[order[:, 0]]
+    c1 = lut[order[:, 1]]
+    # parent[j] = row that consumed r2_j; max is idempotent, so
+    # scatter-max along 2^k links covers every descendant
+    rows = np.arange(n, dtype=np.int64)
+    parent = np.full(n, -1, dtype=np.int64)
+    parent[c0[c0 >= 0]] = rows[c0 >= 0]
+    parent[c1[c1 >= 0]] = rows[c1 >= 0]
+    mono = stats.copy()
+    par = parent
+    while (par >= 0).any():
+        valid = par >= 0
+        np.maximum.at(mono, par[valid], mono[valid])
+        par = np.where(valid, np.take(par, np.maximum(par, 0)), -1)
+    return mono <= tau
+
+
+def _splice_neighbors(tbl, nbrs, a, b, r2, splice):
+    """Move the boundary entries of the merged regions a and b (their
+    own pair already popped) to the new region r2: ``splice(dst, src)``
+    folds an entry into one that r2 already has with the same neighbour."""
+    na = nbrs.pop(a, set())
+    nb = nbrs.pop(b, set())
+    na.discard(b)
+    nb.discard(a)
+    merged = set()
+    for src, rest in ((a, na), (b, nb)):
+        for x in rest:
+            ee = tbl.pop((src, x) if src < x else (x, src))
+            k2 = (r2, x) if r2 < x else (x, r2)
+            if k2 in tbl:
+                splice(tbl[k2], ee)
+            else:
+                tbl[k2] = ee
+            nx = nbrs[x]
+            nx.discard(a)
+            nx.discard(b)
+            nx.add(r2)
+            merged.add(x)
+    nbrs[r2] = merged
+
+
+def _sum_into(dst, src):
+    dst[0] += src[0]
+    dst[1] += src[1]
+
+
+def replay_exact_saliency(u, v, s, c, order, engine="native"):
+    """Serial host replay of a merge order recomputing each merge's EXACT
+    pooled-mean boundary statistic at merge time.
+
+    The batched superstep engine records each attach's start-of-superstep
+    statistic, which goes stale once earlier merges in the same superstep
+    re-pool the boundary (the reference's serial engine re-pools after
+    EVERY pop, boundary_table.hxx:122-167).  Replaying the emitted order
+    through a host boundary table restores the serial quantity.
+
+    order rows are dense-index triples (r0, r1, r2).  Returns stat [n]
+    (pooled mean of each merge's boundary at merge time; saliency =
+    -stat), NaN for a non-adjacent pair.  engine="native" (default) runs
+    the C++ replay, engine="py" the Python oracle (tests assert they
+    agree)."""
+    s = np.asarray(s, dtype=np.float64)
+    c = np.asarray(c, dtype=np.float64)
+    order_a = np.asarray(order, dtype=np.int64).reshape(-1, 3)
+    if engine == "native":
+        from ..native import replay_saliency_native
+
+        hi = int(max(np.max(order_a, initial=0),
+                     np.max(u, initial=0), np.max(v, initial=0))) + 1
+        return replay_saliency_native(u, v, s, c, order_a, hi)
+    if engine != "py":
+        raise ValueError(f"replay engine {engine!r} (native|py)")
+    tbl = {}
+    nbrs = {}
+    for ui, vi, si, ci in zip(np.asarray(u).tolist(),
+                              np.asarray(v).tolist(),
+                              s.tolist(), c.tolist()):
+        a, b = (ui, vi) if ui < vi else (vi, ui)
+        if (a, b) in tbl:
+            _sum_into(tbl[(a, b)], (si, ci))
+        else:
+            tbl[(a, b)] = [si, ci]
+            nbrs.setdefault(a, set()).add(b)
+            nbrs.setdefault(b, set()).add(a)
+    out = np.full(len(order_a), np.nan)
+    for i, (a, b, r2) in enumerate(order_a.tolist()):
+        e = tbl.pop((a, b) if a < b else (b, a), None)
+        if e is None:
+            continue  # non-adjacent pair: keep NaN, caller decides
+        out[i] = e[0] / max(e[1], 1.0)
+        _splice_neighbors(tbl, nbrs, a, b, r2, _sum_into)
+    return out
+
+
+def replay_exact_saliency_median(u, v, edge_ptr, edge_vals, order,
+                                 engine="native", region_sizes=None):
+    """Serial host replay of a merge order recomputing each merge's EXACT
+    upper-median boundary statistic at merge time (policy-0 counterpart
+    of replay_exact_saliency; util/stats.hxx:83-91 amedian under the
+    boundary_table splice).  Medians are not additive, so the replay
+    carries full per-pair value multisets.  With ``region_sizes`` (leaf
+    sizes by dense region id) the statistic is median * min(size), the
+    median_minsize policy.  engine="native" (default) runs the C++
+    engine, "py" the dict oracle (tests assert they agree).  Returns
+    stat [n] (saliency = -stat)."""
+    order_a = np.asarray(order, dtype=np.int64).reshape(-1, 3)
+    hi = int(max(order_a.max(initial=0), np.max(u, initial=0),
+                 np.max(v, initial=0))) + 1
+    if engine == "native":
+        from ..native import replay_saliency_median_native
+
+        return replay_saliency_median_native(u, v, edge_ptr, edge_vals,
+                                             order_a, hi,
+                                             region_sizes=region_sizes)
+    if engine != "py":
+        raise ValueError(f"replay engine {engine!r} (native|py)")
+    sizes = None
+    if region_sizes is not None:
+        sizes = np.zeros(hi, dtype=np.int64)
+        sizes[: len(region_sizes)] = np.asarray(region_sizes,
+                                                dtype=np.int64)
+    edge_ptr = np.asarray(edge_ptr)
+    edge_vals = np.asarray(edge_vals, dtype=np.float64)
+    tbl = {}
+    nbrs = {}
+    for e, (ui, vi) in enumerate(zip(np.asarray(u).tolist(),
+                                     np.asarray(v).tolist())):
+        a, b = (ui, vi) if ui < vi else (vi, ui)
+        vals = edge_vals[int(edge_ptr[e]):int(edge_ptr[e + 1])].tolist()
+        if (a, b) in tbl:
+            tbl[(a, b)].extend(vals)
+        else:
+            tbl[(a, b)] = list(vals)
+            nbrs.setdefault(a, set()).add(b)
+            nbrs.setdefault(b, set()).add(a)
+    out = np.full(len(order_a), np.nan)
+    for i, (a, b, r2) in enumerate(order_a.tolist()):
+        if sizes is not None:
+            sizes[r2] = sizes[a] + sizes[b]
+        vals = tbl.pop((a, b) if a < b else (b, a), None)
+        if vals is None:
+            continue
+        arr = np.asarray(vals)
+        out[i] = float(np.partition(arr, len(arr) // 2)[len(arr) // 2])
+        if sizes is not None:
+            out[i] *= float(min(sizes[a], sizes[b]))
+        _splice_neighbors(tbl, nbrs, a, b, r2, list.extend)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# user surface
+# ---------------------------------------------------------------------------
+
+def order_to_keys(order, n_merges, rag):
+    """Convert dense-index order rows to the RAG's label key space: a
+    leaf index becomes its label, merge id R + i the key max_key + 1 + i;
+    each row's two inputs are sorted (the host engine records sorted
+    table keys, boundary_table.hxx)."""
+    if torch.is_tensor(order):
+        order = order.cpu().numpy()
+    order = np.asarray(order)[:n_merges].astype(np.int64)
+    R = rag.n_regions
+    max_key = int(rag.keys.max()) if R else 0
+    keys = np.asarray(rag.keys, dtype=np.int64)
+    out = np.where(order < R, keys[np.minimum(order, R - 1)],
+                   max_key + 1 + (order - R))
+    out[:, :2] = np.sort(out[:, :2], axis=1)
+    return out
+
+
+def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
+                        mode="fused", dmax=4, stats=None,
+                        exact_saliency=True, saliency_engine="device",
+                        device: DeviceLike = None,
+                        dtype: Optional[torch.dtype] = None):
+    """User-surface device merge: the (order_keys, saliencies) contract of
+    the serial host engine, run as batched supersteps on the device (the
+    counterpart of the reference's serial ``genMergeOrderGreedy``,
+    util/struct_merge.hxx:13-33).
+
+    policy: "mean" (pooled boundary mean, struct_merge.hxx:38-85),
+    "median" (approx-median over an additive n_bins histogram sketch,
+    struct_merge.hxx:90-136 semantics to bin resolution), or
+    "median_minsize" (median * smaller endpoint region size,
+    struct_merge.hxx:141-185; sizes pooled as an additive vertex
+    payload) -- all three of the reference's saliency policies.
+
+    mode: "fused", the single-phase engine.  The reference's "fused_ms"
+    and "chunked" are not ported and raise NotImplementedError.
+
+    exact_saliency (default True): replace the engine's
+    start-of-superstep saliencies with the exact merge-time statistics,
+    the serial-engine quantity.  For policy "mean", saliency_engine
+    selects how: "device" (default) runs the LCA-keyed segment sums on
+    the device (exact_saliency_device); "native"/"py" run the serial host
+    replay (replay_exact_saliency).  The median policies always replay on
+    the host (medians are not additive).
+
+    ``device`` defaults to the CUDA card and raises without one.  A
+    ``stats`` dict receives n_supersteps and the wall seconds of the
+    stages (t_merge_loop, t_exact_saliency).
+    Returns (order [n, 3] int64 label keys, saliencies [n] float64)."""
+    _require_fused(mode)
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    st = stats if stats is not None else {}
+    kw = dict(mode=mode, dmax=dmax, stats=st, device=dev, dtype=dt)
+
+    def timed_merge(fn, *args):
+        t = time.perf_counter()
+        order, sal, n_m = fn(*args, rag.n_regions, **kw)
+        order = order[:n_m].cpu().numpy()
+        sal = sal[:n_m].double().cpu().numpy()
+        st["t_merge_loop"] = time.perf_counter() - t
+        return order, sal, n_m
+
+    def with_replay(sal, replay, *args, **kwargs):
+        t = time.perf_counter()
+        ex = replay(*args, **kwargs)
+        st["t_exact_saliency"] = time.perf_counter() - t
+        return np.where(np.isnan(ex), sal, -ex)
+
+    if policy == "mean":
+        u, v, s, c = edge_mean_arrays(rag, pb_image)
+        if exact_saliency and saliency_engine == "device":
+            order, sal, n_m = merge_batched_device_exact(
+                u, v, s, c, rag.n_regions, dmax=dmax, stats=st, device=dev,
+                dtype=dt)
+            sal = sal[:n_m].double().cpu().numpy()
+            return order_to_keys(order, n_m, rag), sal
+        order, sal, n_m = timed_merge(merge_batched_device, u, v, s, c)
+        if exact_saliency:
+            sal = with_replay(sal, replay_exact_saliency, u, v, s, c, order,
+                              engine=saliency_engine)
+    elif policy in ("median", "median_minsize"):
+        sizes = None
+        if policy == "median_minsize":
+            if rag.sizes is None:
+                raise ValueError("median_minsize needs region sizes; build "
+                                 "the RAG with contour_only=False")
+            sizes = rag.sizes
+        u, v, h = edge_hist_arrays(rag, pb_image, n_bins=n_bins)
+        if sizes is None:
+            order, sal, n_m = timed_merge(merge_batched_device_hist, u, v, h)
+        else:
+            order, sal, n_m = timed_merge(merge_batched_device_hist_minsize,
+                                          u, v, h, sizes)
+        if exact_saliency:
+            # exact upper medians at merge time: a host replay, since
+            # medians are not additive and have no segment-sum form
+            pb = np.asarray(pb_image, dtype=np.float64).ravel()
+            sal = with_replay(sal, replay_exact_saliency_median, u, v,
+                              rag.edge_ptr, pb[rag.edge_pixels], order,
+                              region_sizes=sizes)
+    else:
+        raise ValueError(
+            f"device policy {policy!r} (mean|median|median_minsize)")
+    return order_to_keys(order, n_m, rag), sal

@@ -132,3 +132,96 @@ def node_potentials(tree: MergeTree, merge_probs) -> np.ndarray:
                 pot[c] *= psplit
     pot[tree.root] *= pot[tree.root]
     return pot
+
+
+def pairs_lca(tree: MergeTree, pair_leaf_a, pair_leaf_b) -> np.ndarray:
+    """LCA node index for many (leaf, leaf) pairs at once.
+
+    Offline union-find over the merge sequence with small-to-large pair
+    lists: a pair's LCA is the internal node created by the merge that
+    first joins its endpoints' components -- O((M + P) log P), replacing
+    per-pair ancestor walks (O(P * depth), quadratic on chain-like merge
+    trees).  Pairs whose endpoints never join (or with leaf index < 0)
+    get -1.
+    """
+    P = len(pair_leaf_a)
+    out = np.full(P, -1, dtype=np.int64)
+    comp = {}      # leaf/root node -> comp id
+    parent = {}    # DSU
+    plist = {}     # comp root -> list of pair ids
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    leaf_nodes = np.nonzero(tree.is_leaf)[0]
+    for n in leaf_nodes:
+        parent[int(n)] = int(n)
+        plist[int(n)] = []
+    for pi in range(P):
+        a, b = int(pair_leaf_a[pi]), int(pair_leaf_b[pi])
+        if a < 0 or b < 0 or a == b:
+            continue
+        plist[a].append(pi)
+        plist[b].append(pi)
+    pa = np.asarray(pair_leaf_a, dtype=np.int64)
+    pb = np.asarray(pair_leaf_b, dtype=np.int64)
+    for i in range(tree.n_nodes):
+        l, r = int(tree.left[i]), int(tree.right[i])
+        if l < 0:
+            continue
+        ra, rb = find(l), find(r)
+        if len(plist[ra]) < len(plist[rb]):
+            ra, rb = rb, ra
+        # merge rb into ra
+        keep = plist[ra]
+        for pi in plist[rb]:
+            if out[pi] >= 0:
+                continue
+            fa, fb = find(int(pa[pi])), find(int(pb[pi]))
+            if {fa, fb} == {ra, rb}:
+                out[pi] = i
+            else:
+                keep.append(pi)
+        parent[rb] = ra
+        plist[rb] = []
+        plist[ra] = keep
+        parent[i] = ra  # the new internal node joins the merged component
+    return out
+
+
+def dfs_intervals(tree: MergeTree):
+    """Host preprocessing: leaf DFS positions + per-node [lo, hi) intervals.
+
+    Returns (leaf_pos [M] with -1 for internal, lo [M], hi [M],
+    leaf_order [n_leaves] = node index of the leaf at each DFS slot).
+    """
+    M = tree.n_nodes
+    lo = np.zeros(M, dtype=np.int64)
+    hi = np.zeros(M, dtype=np.int64)
+    leaf_pos = np.full(M, -1, dtype=np.int64)
+    leaf_order = []
+    # iterative DFS from every root (tree may be a forest with extra leaves)
+    roots = [i for i in range(M) if tree.parent[i] < 0]
+    counter = 0
+    for root in roots:
+        stack = [(root, False)]
+        while stack:
+            node, done = stack.pop()
+            if done:
+                hi[node] = counter
+                continue
+            if tree.left[node] < 0:
+                lo[node] = counter
+                leaf_pos[node] = counter
+                leaf_order.append(node)
+                counter += 1
+                hi[node] = counter
+            else:
+                lo[node] = counter
+                stack.append((node, True))
+                stack.append((int(tree.right[node]), False))
+                stack.append((int(tree.left[node]), False))
+    return leaf_pos, lo, hi, np.asarray(leaf_order, dtype=np.int64)

@@ -221,3 +221,23 @@ def make_label_scorer(model: ForestModel, label=-1,
 
     return score
 
+
+def predict_label_fraction(model: ForestModel, X, label=1, backend="np",
+                           device: DeviceLike = None) -> np.ndarray:
+    """Vote fraction for one label: Model::predict semantics
+    (rf.hxx:362-372).  ``label`` is an original class label.
+
+    backend="np" is the host walk in float64 (``predict_votes_np``,
+    votes / T); backend="device" is the device walk in float32
+    (``forest_votes``: the CUDA kernel on the card, the plain walk on the
+    CPU; count * fl32(1/T)) on ``device``, the CUDA card by default.
+    Returns a numpy array [B]."""
+    li = int(np.nonzero(model.classes == label)[0][0])
+    if backend == "np":
+        return predict_votes_np(model, X)[:, li]
+    if backend != "device":
+        raise ValueError(f"forest backend {backend!r} (np|device)")
+    dev = resolve_device(device)
+    tables = ForestTables.from_model(model, dev)
+    Xd = torch.as_tensor(np.asarray(X), device=dev).to(torch.float32)
+    return forest_votes(Xd, tables)[:, li].cpu().numpy()

@@ -1,5 +1,5 @@
 """ctypes bindings for the C++ host runtime: watershed, the serial
-pre-merge loop and connected components.
+pre-merge loop, connected components and the exact-saliency replays.
 
 ``src/glia_native.cc`` is this package's own copy of glia_tpu's C++
 runtime.  It is compiled with g++ at first use into ``.build/glia_tpu_torch/``
@@ -52,6 +52,15 @@ def get_lib():
         lib.glia_connected_components.argtypes = [
             p_i32, ctypes.c_void_p, p_i64, ctypes.c_int, p_i32,
         ]
+        lib.glia_replay_saliency.restype = None
+        lib.glia_replay_saliency.argtypes = [
+            i64, p_i32, p_i32, p_f64, p_f64, i64, i64, p_i32, p_f64,
+        ]
+        lib.glia_replay_saliency_median.restype = None
+        lib.glia_replay_saliency_median.argtypes = [
+            i64, p_i32, p_i32, p_i64, p_f64, i64, i64, p_i32,
+            ctypes.c_void_p, p_f64,
+        ]
         _lib = lib
         return _lib
 
@@ -93,6 +102,54 @@ def pre_merge_native(rag, pb_image, size_thresholds=(50,),
         order, sals, max_merges,
     )
     return order[: n * 3].reshape(-1, 3).copy(), sals[:n].copy()
+
+
+def replay_saliency_native(u, v, s, c, order, n_ids):
+    """Serial replay of a fixed merge order recomputing each merge's exact
+    pooled-mean boundary statistic (the C++ engine of
+    graph.merge_device.replay_exact_saliency)."""
+    lib = get_lib()
+    u = np.ascontiguousarray(u, dtype=np.int32)
+    v = np.ascontiguousarray(v, dtype=np.int32)
+    s = np.ascontiguousarray(s, dtype=np.float64)
+    c = np.ascontiguousarray(c, dtype=np.float64)
+    order = np.ascontiguousarray(order, dtype=np.int32).reshape(-1, 3)
+    n = len(order)
+    out = np.empty(max(n, 1), dtype=np.float64)
+    lib.glia_replay_saliency(len(u), u, v, s, c, int(n_ids), n,
+                             np.ascontiguousarray(order.ravel()), out)
+    return out[:n]
+
+
+def replay_saliency_median_native(u, v, edge_ptr, edge_vals, order,
+                                  n_ids, region_sizes=None):
+    """Serial replay of a fixed merge order recomputing each merge's
+    exact upper-median boundary statistic at merge time (the reference's
+    policy-0 quantity, util/stats.hxx:83-91, under splice-as-concat of
+    boundary_table.hxx:122-167).  (u, v): dense endpoint indices per
+    base edge; (edge_ptr, edge_vals): CSR pixel values per base edge;
+    order: [M, 3] dense-index triples.  NaN where the pair has no
+    boundary at its turn.  region_sizes (optional, leaf sizes indexed by
+    dense region id): statistic becomes median * min(size) -- the
+    median_minsize policy (struct_merge.hxx:141-185)."""
+    lib = get_lib()
+    u = np.ascontiguousarray(u, dtype=np.int32)
+    v = np.ascontiguousarray(v, dtype=np.int32)
+    edge_ptr = np.ascontiguousarray(edge_ptr, dtype=np.int64)
+    edge_vals = np.ascontiguousarray(edge_vals, dtype=np.float64)
+    order = np.ascontiguousarray(order, dtype=np.int32).reshape(-1, 3)
+    n = len(order)
+    out = np.empty(max(n, 1), dtype=np.float64)
+    sz_ptr = None
+    if region_sizes is not None:
+        sz = np.zeros(int(n_ids), dtype=np.int64)
+        region_sizes = np.asarray(region_sizes, dtype=np.int64)
+        sz[: len(region_sizes)] = region_sizes
+        sz_ptr = sz.ctypes.data_as(ctypes.c_void_p)
+    lib.glia_replay_saliency_median(
+        len(u), u, v, edge_ptr, edge_vals, int(n_ids), n,
+        np.ascontiguousarray(order.ravel()), sz_ptr, out)
+    return out[:n]
 
 
 def watershed_native(image, level=0.0):

@@ -26,7 +26,8 @@ from ..._build import SharedLibBuild
 from ...models.forest import ForestTables, check_features
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = {"forest_votes": os.path.join(_HERE, "forest_votes.cu")}
+SOURCES = {"forest_votes": os.path.join(_HERE, "forest_votes.cu"),
+           "segment_sum": os.path.join(_HERE, "segment_sum.cu")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_CLASSES = 8
@@ -57,14 +58,27 @@ def kernel_build(name: str) -> SharedLibBuild:
     return SharedLibBuild(name, [SOURCES[name]], [_nvcc(), *NVCC_FLAGS])
 
 
+def _bind(name: str, lib: ctypes.CDLL):
+    """Declare the C entry points of library ``name``: every one returns
+    the CUDA error of its launch (0: none)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "forest_votes":
+        entries = {"glia_forest_votes":
+                   [p, i, i, p, p, p, p, p, i, i, i, i, p, p]}
+    else:
+        args = [p, p, ll, i, ll, i, p, p]
+        entries = {"glia_segment_sum": args, "glia_segment_sum_sorted": args}
+    for fn_name, argtypes in entries.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = i
+        fn.argtypes = argtypes
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(kernel_build(name).wait())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn = lib.glia_forest_votes
-            fn.restype = i
-            fn.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i, p, p]
+            _bind(name, lib)
             _libs[name] = lib
         return _libs[name]
 
@@ -117,4 +131,48 @@ def forest_votes_cuda(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
         raise RuntimeError(f"forest_votes kernel launch failed: CUDA error "
                            f"{rc}")
     launches["forest_votes"] += 1
+    return out
+
+
+def segment_sum_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
+                     n_segments: int, sorted: bool = False) -> torch.Tensor:
+    """Segment sum by the CUDA kernel ``segment_sum.cu``: values [B, F] or
+    [B] (float32 or float64), seg_ids int64 [B], both contiguous on one
+    CUDA device -> [S, F] or [S].  Rows whose id is negative or
+    >= n_segments are dropped.  ``sorted=True`` states that the ids are
+    non-decreasing and selects the entry point without atomics (same bits
+    on every launch); it is not verified on the card."""
+    if values.device.type != "cuda":
+        raise ValueError(f"segment_sum_cuda takes CUDA tensors, got values "
+                         f"on {values.device}")
+    if values.ndim not in (1, 2):
+        raise ValueError(f"values must be [B] or [B, F], got shape "
+                         f"{tuple(values.shape)}")
+    if values.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"values has dtype {values.dtype}, expected "
+                         f"float32 or float64")
+    _check(values, "values", values.dtype, values.device)
+    B = values.shape[0]
+    F = values.shape[1] if values.ndim == 2 else 1
+    S = int(n_segments)
+    if S < 0:
+        raise ValueError(f"n_segments must be >= 0, got {S}")
+    if seg_ids.ndim != 1:
+        raise ValueError(f"seg_ids must be [B], got shape "
+                         f"{tuple(seg_ids.shape)}")
+    _check(seg_ids, "seg_ids", torch.int64, values.device, B)
+    out = torch.zeros((S,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    if B == 0 or S == 0 or F == 0:
+        return out
+    lib = _lib("segment_sum")
+    fn = lib.glia_segment_sum_sorted if sorted else lib.glia_segment_sum
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    with torch.cuda.device(values.device):
+        rc = fn(values.data_ptr(), seg_ids.data_ptr(), B, F, S,
+                int(values.dtype == torch.float64), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches["segment_sum"] += 1
     return out

@@ -22,6 +22,7 @@ from glia_tpu.models.forest import (
     predict_votes_np,
     train_forest,
 )
+from glia_tpu.models.forest import predict_label_fraction as jax_fraction
 from glia_tpu.models.forest import ForestModel as JaxForestModel
 from glia_tpu.ops.pallas.forest import forest_votes_pallas_fn
 from glia_tpu_torch.models.forest import (
@@ -31,6 +32,7 @@ from glia_tpu_torch.models.forest import (
     forest_votes,
     forest_votes_torch,
     make_label_scorer,
+    predict_label_fraction,
 )
 from glia_tpu_torch.models.forest import predict_votes_np as port_votes_np
 
@@ -179,3 +181,40 @@ def test_walk_rejects_features_beyond_the_sample_width():
     tables = ForestTables.from_model(m, "cpu")
     with pytest.raises(ValueError, match="feature 5"):
         forest_votes_torch(torch.zeros((4, 5)), tables)
+
+
+@pytest.mark.parametrize("backend,jbackend", [("np", "np"),
+                                              ("device", "jax")])
+@pytest.mark.parametrize("label", [-1, 1])
+def test_predict_label_fraction_matches(forest_case, backend, jbackend,
+                                        label):
+    """backend="np" divides in float64 (votes / T); the device walk casts
+    X to float32 and gives count * fl32(1/T) in float32, as glia_tpu's
+    jitted walk does.  Both equal glia_tpu's bit for bit."""
+    model, X = forest_case
+    X64 = X.astype(np.float64)
+    got = predict_label_fraction(_to_port(model), X64, label=label,
+                                 backend=backend, device="cpu")
+    want = np.asarray(jax_fraction(model, X64, label=label,
+                                   backend=jbackend))
+    assert got.dtype == want.dtype
+    assert got.dtype == (np.float64 if backend == "np" else np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_predict_label_fraction_rejects_unknown_backend(forest_case):
+    model, X = forest_case
+    with pytest.raises(ValueError, match="np|device"):
+        predict_label_fraction(_to_port(model), X, label=-1, backend="xla",
+                               device="cpu")
+
+
+def test_device_backend_needs_cuda_unless_cpu_is_named(forest_case,
+                                                       monkeypatch):
+    model, X = forest_case
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict_label_fraction(_to_port(model), X, label=-1,
+                               backend="device")
+    # the host walk needs no device
+    predict_label_fraction(_to_port(model), X, label=-1, backend="np")

@@ -35,6 +35,11 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "glia_tpu_torch/models/forest.py" in names
     assert "glia_tpu_torch/ops/cuda/__init__.py" in names
+    for new in ("graph/merge_device.py", "ops/segment.py",
+                "ops/segment_csr.py", "features/hierarchical.py",
+                "native/__init__.py", "pipeline.py", "constants.py",
+                "graph/tree.py"):
+        assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
 

@@ -1,7 +1,7 @@
 """The port's copy of the C++ host runtime vs glia_tpu.native.
 
-Watershed, the serial pre-merge and connected components of the port's
-own build of ``native/src/glia_native.cc`` against glia_tpu's build of the
+Watershed, the serial pre-merge, connected components and the exact
+saliency replays of the port's own build of ``native/src/glia_native.cc`` against glia_tpu's build of the
 same functions, on seeded synthetic slices.  Tolerance: exact.
 """
 
@@ -59,3 +59,50 @@ def test_connected_components_matches(data):
         np.testing.assert_array_equal(
             tn.connected_components_native(labels, m),
             jn.connected_components_native(labels, m))
+
+
+def _replay_inputs(data):
+    """Edge arrays of the slice's RAG and a serial host merge order in
+    dense ids, for the mean and the median policies."""
+    from glia_tpu.graph.merge_device import edge_mean_arrays
+
+    seg = jp.watershed(data["pb"], 0.05)
+    rag = jp.build_rag(seg, contour_only=False)
+    u, v, s, c = edge_mean_arrays(rag, data["pb"])
+    R, max_key = rag.n_regions, int(rag.keys.max())
+
+    def dense(order):
+        return np.where(order <= max_key,
+                        rag.key_index(np.minimum(order, max_key)),
+                        R + order - max_key - 1)
+
+    return rag, (u, v, s, c), dense
+
+
+def test_replay_saliency_native_matches(data):
+    rag, (u, v, s, c), dense = _replay_inputs(data)
+    order, sal = jn.greedy_merge_native(rag, data["pb"], policy="mean")
+    order = dense(order)
+    hi = int(order.max()) + 1
+    got = tn.replay_saliency_native(u, v, s, c, order, hi)
+    want = jn.replay_saliency_native(u, v, s, c, order, hi)
+    np.testing.assert_array_equal(got, want)
+    # on its own order the replay is the serial engine's pop-time value
+    np.testing.assert_allclose(got, -sal, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("policy,sized", [("median", False),
+                                          ("median_minsize", True)])
+def test_replay_saliency_median_native_matches(data, policy, sized):
+    rag, (u, v, _, _), dense = _replay_inputs(data)
+    order, sal = jn.greedy_merge_native(rag, data["pb"], policy=policy)
+    order = dense(order)
+    hi = int(order.max()) + 1
+    vals = np.asarray(data["pb"], np.float64).ravel()[rag.edge_pixels]
+    sizes = rag.sizes if sized else None
+    got = tn.replay_saliency_median_native(u, v, rag.edge_ptr, vals, order,
+                                           hi, region_sizes=sizes)
+    want = jn.replay_saliency_median_native(u, v, rag.edge_ptr, vals, order,
+                                            hi, region_sizes=sizes)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, -sal)

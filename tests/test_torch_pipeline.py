@@ -1,4 +1,5 @@
-"""Port hmt_segment(engine="device_bc") vs glia_tpu's, end to end.
+"""Port hmt_segment (engines "device_bc" and "device") vs glia_tpu's, end
+to end.
 
 A 96x96 synthetic slice (seed 4, 20 cells) and a forest trained by
 glia_tpu (watershed -> pre-merge -> host merge order -> BC features and
@@ -9,6 +10,18 @@ compute.  The forest reaches the port through ForestModel.from_arrays.
 Required: identical merge order and final segmentation, probabilities
 equal, evaluate() dicts equal to 1e-12.  Also: the device policy (no
 silent CPU run) and the kernel wrapper's refusal of CPU tensors.
+
+engine="device" (pb-policy merge order on the device, host BC features,
+one forest scoring) runs on the same slice for the policies mean, median
+and median_minsize, each with a forest trained by glia_tpu on the 148-wide
+BC features (with the saliency columns, which this engine scores).  It is
+held against the same steps composed from glia_tpu's functions with
+greedy_merge_device(mode="fused"), the engine the port has: identical
+seg0, order, probabilities (host walk and device walk), picks and final
+segmentation, evaluate() equal to 1e-12.  glia_tpu's own
+hmt_segment(engine="device") runs mode="fused_ms", which builds the same
+hierarchy but not provably the same rows: there the merge count must be
+equal and the VI between the two final segmentations 0.
 """
 
 import numpy as np
@@ -21,7 +34,12 @@ from glia_tpu.data.synthetic import synthetic_em_slice
 from glia_tpu.features.config import FeatureConfig
 from glia_tpu.features.hierarchical import TreeFeatures
 from glia_tpu.features.labels import bc_labels
+from glia_tpu.graph.merge_device import greedy_merge_device
 from glia_tpu.graph.rag import build_rag
+from glia_tpu.graph.tree import build_tree, node_potentials
+from glia_tpu.infer.greedy import resolve_tree_greedy
+from glia_tpu.infer.segment import final_segmentation
+from glia_tpu.metrics import eval_vi
 from glia_tpu.models.forest import train_forest
 from glia_tpu.native import greedy_merge_native
 from glia_tpu_torch.models.forest import ForestModel, ForestTables
@@ -79,10 +97,14 @@ def test_no_device_without_cuda_raises(case, monkeypatch):
         tp.hmt_segment(s["pb"], s["intensity"], model)
     with pytest.raises(RuntimeError, match="CUDA"):
         tp.hmt_segment(s["pb"], s["intensity"], model, device="cuda")
+    for kw in ({}, {"device": "cuda"}, {"backend": "device"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tp.hmt_segment(s["pb"], s["intensity"], model, engine="device",
+                           **kw)
 
 
-@pytest.mark.parametrize("kw", [{"engine": "host"}, {"engine": "device"},
-                                {"mode": "ccm"}])
+@pytest.mark.parametrize("kw", [{"engine": "host"}, {"mode": "ccm"},
+                                {"engine": "host", "mode": "ccm"}])
 def test_unported_engines_raise(case, kw):
     s, _, model = case
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -97,3 +119,123 @@ def test_kernel_wrapper_refuses_cpu_tensors(case):
         forest_votes_cuda(torch.zeros((4, 143), dtype=torch.float32),
                           tables)
     assert launches == before
+
+
+# ---------------------------------------------------------------------------
+# engine="device"
+# ---------------------------------------------------------------------------
+
+POLICIES = ["mean", "median", "median_minsize"]
+
+
+@pytest.fixture(scope="module", params=POLICIES)
+def device_case(request):
+    """The slice and, for one policy, a forest trained as hmt_train does:
+    on bc_features() of the host merge order with its saliencies."""
+    policy = request.param
+    s = synthetic_em_slice(shape=(96, 96), n_cells=20, seed=4)
+    seg = jp.pre_merge(jp.watershed(s["pb"], 0.05), s["pb"], (30,))
+    rag = build_rag(seg, contour_only=False)
+    order, sals = greedy_merge_native(rag, s["pb"], policy=policy)
+    cfg = FeatureConfig.standard(s["pb"], s["intensity"], n_bins=16)
+    X = TreeFeatures(rag, order, cfg, saliencies=sals).bc_features()
+    assert X.shape[1] == 148
+    y, _, _ = bc_labels(seg, s["truth"], order, rule="f1")
+    f = train_forest(X, y, n_trees=20, seed=0)
+    jmodel = jp.HmtModel(forest=f, policy=policy)
+    model = tp.hmt_model_from_arrays(
+        f.feature, f.threshold, f.left, f.right, f.leaf_class, f.n_classes,
+        f.max_depth, f.classes, n_bins=jmodel.n_bins,
+        boundary_thresholds=jmodel.boundary_thresholds,
+        policy=jmodel.policy, kind=jmodel.kind,
+        feature_set=jmodel.feature_set)
+    return s, jmodel, model
+
+
+def _glia_tpu_device_steps(s, jmodel, backend):
+    """glia_tpu.pipeline.hmt_segment(engine="device") with its merge in
+    mode="fused" (pipeline.py:280-283, 329-341)."""
+    seg = jp.pre_merge(jp.watershed(s["pb"], 0.05), s["pb"], (30,))
+    rag = build_rag(seg, contour_only=False)
+    order, sals = greedy_merge_device(rag, s["pb"], policy=jmodel.policy,
+                                      mode="fused")
+    feats = jp._features_for(seg, s["pb"], s["intensity"], jmodel, order,
+                             sals)
+    probs = jmodel.predict_merge_prob(feats, backend=backend)
+    tree = build_tree(order)
+    picks = resolve_tree_greedy(tree, node_potentials(tree, probs))
+    return final_segmentation(seg, tree, picks), {
+        "seg0": seg, "order": order, "probs": probs, "n_picks": len(picks)}
+
+
+@pytest.mark.parametrize("backend", ["np", "device"])
+def test_hmt_segment_device_matches_glia_tpu_steps(device_case, backend):
+    s, jmodel, model = device_case
+    want_seg, want = _glia_tpu_device_steps(
+        s, jmodel, "np" if backend == "np" else "jax")
+    stats = {}
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
+                                  engine="device", backend=backend,
+                                  device="cpu", stats=stats)
+    np.testing.assert_array_equal(got["seg0"], want["seg0"])
+    assert len(got["order"]) > 20
+    np.testing.assert_array_equal(got["order"], want["order"])
+    np.testing.assert_array_equal(got["probs"], want["probs"])
+    assert got["probs"].dtype == want["probs"].dtype
+    assert got["n_picks"] == want["n_picks"]
+    np.testing.assert_array_equal(got_seg, want_seg)
+    ev_want = jp.evaluate(want_seg, s["truth"])
+    ev_got = tp.evaluate(got_seg, s["truth"])
+    assert ev_got.keys() == ev_want.keys()
+    for k in ev_want:
+        assert ev_got[k] == pytest.approx(ev_want[k], rel=1e-12, abs=1e-12)
+    assert stats["n_supersteps"] >= 1
+    assert {"t_watershed", "t_pre_merge", "t_rag", "t_merge_loop",
+            "t_exact_saliency", "t_features", "t_predict",
+            "t_tree_resolve", "t_segmentation"} <= set(stats)
+
+
+def test_hmt_segment_device_vs_glia_tpu_multiphase_engine(device_case):
+    """glia_tpu's own hmt_segment(engine="device") merges in
+    mode="fused_ms": the same hierarchy, so the same merge count and the
+    same final segmentation up to label names (VI 0)."""
+    s, jmodel, model = device_case
+    want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jmodel,
+                                    engine="device")
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
+                                  engine="device", device="cpu")
+    np.testing.assert_array_equal(got["seg0"], want["seg0"])
+    assert len(got["order"]) == len(want["order"])
+    _, _, vi = eval_vi(got_seg, want_seg)
+    assert vi == 0.0
+
+
+def test_predict_merge_prob_backends(device_case):
+    s, jmodel, model = device_case
+    rng = np.random.default_rng(9)
+    X = rng.random((300, 148))
+    for backend, jbackend in (("np", "np"), ("device", "jax")):
+        got = model.predict_merge_prob(X, backend=backend, device="cpu")
+        want = jmodel.predict_merge_prob(X, backend=jbackend)
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="backend"):
+        model.predict_merge_prob(X, backend="pallas", device="cpu")
+
+
+def test_device_engine_checks_policy_and_model(case):
+    s, _, model = case
+    bad = tp.HmtModel(forest=model.forest, policy="max")
+    with pytest.raises(ValueError, match="policies"):
+        tp.hmt_segment(s["pb"], s["intensity"], bad, engine="device",
+                       device="cpu")
+    assert tp.HmtModel(forest=model.forest).policy == "median"
+    f = model.forest
+    args = (f.feature, f.threshold, f.left, f.right, f.leaf_class,
+            f.n_classes, f.max_depth, f.classes)
+    with pytest.raises(ValueError, match="kind"):
+        tp.hmt_model_from_arrays(*args, kind="mlp")
+    with pytest.raises(ValueError, match="feature_set"):
+        tp.hmt_model_from_arrays(*args, feature_set="simple")
+    m = tp.hmt_model_from_arrays(*args, n_bins=8, policy="mean")
+    assert (m.n_bins, m.policy) == (8, "mean")
+    np.testing.assert_array_equal(m.forest.threshold, f.threshold)
