@@ -16,18 +16,24 @@ trees, classes {-1, 1}, depth up to 24).  Phases, one JSON line each:
           (held against the same features computed in float64 on the
           CPU), and the random forest
   kernel  every kernel of the paths against its plain PyTorch version on
-          the card at the slice's shapes (the forest walk; the segment
-          sum, both entry points, at the shapes the merge engine gives it)
+          the card at the slice's shapes: the forest walk (0 mismatching
+          vote fractions on the path's batch, a batch set onto thresholds,
+          a batch that ends inside a sample tile, 2 and 8 classes, both
+          instantiations, a forest too large for shared memory); the
+          segment sum, both entry points, at the shapes the merge engines
+          give it (the sorted entry must give the CPU's index_add_ bits,
+          in float32 and float64)
   slice   hmt_segment(engine="device_bc") on the card with launch counts,
           stage times, VI / adapted Rand, a merge-forest validity check,
-          and a second merge loop run to count the order rows two card
-          runs agree on
+          and a second merge loop run that must give the same order rows
+          and the same probabilities, bit for bit
   slice_device
           hmt_segment(engine="device") on the card for the policies mean
           and median with the device forest walk: launch counts of both
           kernels, stage times, the merge loop's profile, the exact
-          saliencies against the serial replay, order agreement of two
-          runs; then the ``kernels`` line
+          saliencies against the serial replay, and two more runs of the
+          merge that must give identical rows and saliencies; then the
+          ``kernels`` line
 
 Any failed phase raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
@@ -41,7 +47,6 @@ import json
 import subprocess
 import sys
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -79,6 +84,17 @@ def cuda_time_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def cuda_burst_time_ms(fn, inner=20, reps=5):
+    """Device milliseconds of one ``fn()`` from bursts of ``inner`` calls
+    between two CUDA events: for a kernel that runs longer than the host
+    takes to enqueue it, so that the device never waits for the host."""
+    def burst():
+        for _ in range(inner):
+            fn()
+
+    return cuda_time_ms(burst, reps, warmup=1) / inner
 
 
 def cuda_graph_time_ms(fn, inner=20, reps=20):
@@ -130,7 +146,8 @@ def phase_build():
     get_lib()
     seconds = time.perf_counter() - t
     ptxas = {name: [ln.strip() for ln in b.log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]
              for name, b in builds.items() if name in kcuda.SOURCES}
     emit({"phase": "build", "seconds": seconds,
           "libraries": {n: b.path for n, b in builds.items()},
@@ -138,7 +155,7 @@ def phase_build():
 
 
 def random_forest(X, n_trees, max_depth, rng, n_sub=2048, min_leaf=4,
-                  leaf_rate=0.02):
+                  leaf_rate=0.02, n_classes=2):
     """A seeded random forest in the reference's node-array shape.
 
     Each tree grows from a bootstrap sample of the rows of ``X``: a node
@@ -167,7 +184,7 @@ def random_forest(X, n_trees, max_depth, rng, n_sub=2048, min_leaf=4,
             depth_seen = max(depth_seen, d)
             if (d >= max_depth or len(idx) < 2 * min_leaf
                     or rng.random() < leaf_rate * d):
-                cls[n] = int(rng.integers(0, 2))
+                cls[n] = int(rng.integers(0, n_classes))
                 continue
             f = int(rng.integers(0, D))
             a, b = X[idx[rng.integers(0, len(idx), 2)], f]
@@ -185,8 +202,9 @@ def random_forest(X, n_trees, max_depth, rng, n_sub=2048, min_leaf=4,
     for i, t in enumerate(trees):
         for a, v in zip(arrs, t):
             a[i, :len(v)] = v
-    return ForestModel.from_arrays(*arrs, n_classes=2, max_depth=depth_seen,
-                                   classes=np.array([-1, 1]))
+    classes = np.array([-1, 1]) if n_classes == 2 else np.arange(n_classes)
+    return ForestModel.from_arrays(*arrs, n_classes=n_classes,
+                                   max_depth=depth_seen, classes=classes)
 
 
 def phase_data(side, seed, n_trees, max_depth, dev):
@@ -247,42 +265,75 @@ def node_shape(model):
     return depth, inner, int(real.sum()) - inner
 
 
+# kernel B1's time per launch before its redesign (one thread per sample
+# walking the flat tables in L2), NVIDIA H100 80GB HBM3 at 700 W: printed
+# beside the new time on the ``kernel`` lines, never on the ``kernels`` line
+# (every time there is one this run measured)
+B1_PREV_MS = {"device_bc": 1.512, "device": 1.517}
+
+
+def tie_batch(X, model, rng, per_row=32):
+    """A copy of ``X`` whose rows each sit exactly on ``per_row`` split
+    thresholds of ``model``: ties must go left in both versions."""
+    ties = X.clone()
+    ti, ni = np.nonzero(model.feature >= 0)
+    pick = rng.integers(0, len(ti), (ties.shape[0], per_row))
+    rows = np.repeat(np.arange(ties.shape[0]), per_row)
+    cols = model.feature[ti[pick], ni[pick]].ravel()
+    vals = model.threshold[ti[pick], ni[pick]].ravel()
+    ties[torch.as_tensor(rows, device=X.device),
+         torch.as_tensor(cols, device=X.device)] = torch.as_tensor(
+             vals, device=X.device)
+    return ties
+
+
+def forest_mismatches(X, tables, global_memory=False):
+    """(vote fractions that differ between the kernel and the plain walk,
+    their largest difference); two launches must give the same bits.
+    ``global_memory``: through the kernel's global-memory instantiation."""
+    from glia_tpu_torch.models.forest import forest_votes_torch
+    from glia_tpu_torch.ops.cuda import forest_votes_cuda
+
+    got = forest_votes_cuda(X, tables, global_memory)
+    again = forest_votes_cuda(X, tables, global_memory)
+    want = forest_votes_torch(X, tables)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("forest_votes: two launches gave different bits")
+    return int((got != want).sum()), float((got - want).abs().max())
+
+
 def phase_kernel(feats, model, seed, path="device_bc"):
     """Kernel B1 (forest vote walk) against the plain walk at one path's
     batch: ``feats`` [B, D] float32 on the card, ``model`` the forest."""
     from glia_tpu_torch.models.forest import (
         ForestTables, forest_leaves_torch, forest_votes_torch)
-    from glia_tpu_torch.ops.cuda import forest_votes_cuda
+    from glia_tpu_torch.ops import cuda as kcuda
 
     tables = ForestTables.from_model(model, feats.device)
-    # a batch whose features sit exactly on split thresholds: ties must
-    # go left in both versions
     rng = np.random.default_rng(seed + 1)
-    ties = feats[:4096].clone()
-    ti, ni = np.nonzero(model.feature >= 0)
-    pick = rng.integers(0, len(ti), (ties.shape[0], 32))
-    rows = np.repeat(np.arange(ties.shape[0]), 32)
-    cols = model.feature[ti[pick], ni[pick]].ravel()
-    vals = model.threshold[ti[pick], ni[pick]].ravel()
-    ties[torch.as_tensor(rows, device=feats.device),
-         torch.as_tensor(cols, device=feats.device)] = torch.as_tensor(
-             vals, device=feats.device)
+    # the path's batch, a batch on thresholds, a batch that ends inside a
+    # sample tile; each through both instantiations of the kernel
+    batches = {"path": feats, "ties": tie_batch(feats[:4096], model, rng),
+               "ragged": feats[:1000 + 37].contiguous()}
     mismatches, max_err = 0, 0.0
-    for X in (feats, ties):
-        got = forest_votes_cuda(X, tables)
-        want = forest_votes_torch(X, tables)
-        torch.cuda.synchronize()
-        mismatches += int((got != want).sum())
-        max_err = max(max_err, float((got - want).abs().max()))
+    for name, X in batches.items():
+        n, err = forest_mismatches(X, tables)
+        n2, err2 = forest_mismatches(X, tables, global_memory=True)
+        mismatches += n + n2
+        max_err = max(max_err, err, err2)
     if mismatches:
         raise AssertionError(f"forest_votes: {mismatches} vote fractions "
                              f"differ from the plain walk")
 
     B, D = feats.shape
     T, N, C = tables.n_trees, tables.n_nodes, tables.n_classes
-    ms = cuda_time_ms(lambda: forest_votes_cuda(feats, tables), reps=20)
+    ms = cuda_burst_time_ms(lambda: kcuda.forest_votes_cuda(feats, tables))
+    global_ms = cuda_burst_time_ms(
+        lambda: kcuda.forest_votes_cuda(feats, tables, global_memory=True))
     plain_ms = cuda_time_ms(lambda: forest_votes_torch(feats, tables),
                             reps=5)
+    plan = kcuda.forest_plan_on(tables, B, D, feats.device)
     # the bound: each real node read once (an inner node's feature,
     # threshold, left and right, a leaf's feature and class), X read once,
     # the output written once; one fp32 compare per step this data takes,
@@ -299,18 +350,53 @@ def phase_kernel(feats, model, seed, path="device_bc"):
           "T": T, "N": N, "C": C, "max_depth": tables.max_depth,
           "mean_steps": gathers / (B * T), "gathers": gathers,
           "bytes": bytes_moved, "mismatches": mismatches,
-          "tie_rows": int(ties.shape[0]), "ms": ms, "plain_ms": plain_ms})
-    # the kernel's path under both keys its readers look up
+          "batches": {k: int(v.shape[0]) for k, v in batches.items()},
+          "plan": plan, "ms": ms, "prev_ms": B1_PREV_MS[path],
+          "global_memory_ms": global_ms, "plain_ms": plain_ms})
     return {"name": "forest_votes", "route": "cuda",
             "source": "glia_tpu_torch/ops/cuda/forest_votes.cu",
-            "src": "glia_tpu_torch/ops/cuda/forest_votes.cu",
             "replaces": "glia_tpu/ops/pallas/forest.py:108",
             "path": path, "shape": {"B": B, "D": D, "T": T, "N": N, "C": C},
             "launches": None, "mismatches": mismatches,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_err, "ms": ms,
+            "global_memory_ms": global_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+def phase_kernel_forest_shapes(feats, seed):
+    """Kernel B1 on forests the paths do not have: 8 classes, and trees too
+    large for a shared-memory buffer (the kernel then walks global
+    memory)."""
+    from glia_tpu_torch.models.forest import ForestTables
+    from glia_tpu_torch.ops import cuda as kcuda
+
+    X_np = feats.cpu().numpy()
+    rng = np.random.default_rng(seed + 4)
+    cases = {
+        "classes_8": random_forest(X_np, 64, 12, rng, n_classes=8),
+        "large_trees": random_forest(X_np, 4, 24, rng, n_sub=4096,
+                                     min_leaf=1, leaf_rate=0.0),
+    }
+    for name, model in cases.items():
+        tables = ForestTables.from_model(model, feats.device)
+        n = sum(forest_mismatches(X, tables)[0]
+                for X in (feats, tie_batch(feats[:4096], model, rng)))
+        plan = kcuda.forest_plan_on(tables, *feats.shape, feats.device)
+        if n:
+            raise AssertionError(f"forest_votes[{name}]: {n} vote fractions "
+                                 f"differ from the plain walk")
+        if name == "large_trees" and plan["staged"]:
+            raise AssertionError("the large forest fits shared memory: the "
+                                 "global-memory branch was not taken")
+        emit({"phase": "kernel", "name": "forest_votes", "case": name,
+              "T": tables.n_trees, "C": tables.n_classes,
+              "max_depth": tables.max_depth,
+              "largest_tree": int(tables.n_real.max()), "plan": plan,
+              "mismatches": n,
+              "ms": cuda_burst_time_ms(
+                  lambda: kcuda.forest_votes_cuda(feats, tables), inner=5)})
 
 
 def check_order(order, probs, n_regions, max_key):
@@ -371,7 +457,8 @@ def agreement(order1, probs1, order2, probs2):
             "rows_equal": int(same.sum()),
             "common_prefix": int(n if same.all() else np.argmin(same)),
             "identical": bool(np.array_equal(order1, order2)
-                              and np.array_equal(probs1, probs2))}
+                              and np.array_equal(probs1, probs2,
+                                                 equal_nan=True))}
 
 
 def phase_slice(data, model, dev):
@@ -407,10 +494,13 @@ def phase_slice(data, model, dev):
                              "device_bc path")
     if launches["forest_votes"] != stats["n_supersteps"]:
         raise AssertionError("forest_votes should launch once per superstep")
+    if launches["segment_sum"] < 5 * stats["n_supersteps"]:
+        raise AssertionError("segment_sum should launch for every sum of "
+                             "every superstep of the device_bc path")
 
-    # second merge loop on the same RAG: kernel time per superstep and the
-    # order rows two card runs agree on (index_add_ on CUDA adds in no
-    # fixed order)
+    # second merge loop on the same RAG: kernel time per superstep, and the
+    # same rows and probabilities as the first (every float sum of the loop
+    # adds in a fixed order)
     rag = build_rag(seg0, contour_only=False)
     cfg = FeatureConfig.standard(data["pb"], data["intensity"], n_bins=16)
     scorer = make_label_scorer(model, label=-1, device=dev)
@@ -434,23 +524,17 @@ def phase_slice(data, model, dev):
     prof["busy_share_of_unprofiled_wall"] = (
         prof["device_busy_ms"] / (stats2["t_merge_loop"] * 1e3))
 
-    # the same two runs with PyTorch's deterministic algorithms: do the
-    # runs then agree, and at what cost to the merge loop
-    runs, det_stats = [], {}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            for _ in range(2):
-                runs.append(merge_order_bc_device(
-                    rag, cfg, scorer, stats=det_stats, device=dev))
-        finally:
-            torch.use_deterministic_algorithms(False)
-    deterministic = agreement(*runs[0], *runs[1])
-    deterministic["merge_loop_s"] = det_stats["t_merge_loop"]
-    deterministic["nondeterministic_ops"] = sorted(
-        {str(w.message).split(" does not have")[0][:80] for w in caught
-         if "deterministic" in str(w.message)})
+    prof["kernels_per_superstep"] = (prof["kernels_launched"]
+                                     / prof["supersteps"])
+    rerun = agreement(info["order"], info["probs"], order2, probs2)
+    if not rerun["identical"]:
+        raise AssertionError(f"two card runs of the device_bc merge loop "
+                             f"differ: {rerun}")
+    # a whole loop with every sorted=True call's ids checked on the card
+    # (by lower endpoint, by upper endpoint after the stable sort, dedupe)
+    checked = len(capture_segment_sums(
+        lambda: merge_order_bc_device(rag, cfg, scorer, device=dev),
+        keep=False))
     emit({"phase": "slice", "wall_s": wall,
           "stages_s": {k: v for k, v in stats.items() if k.startswith("t_")},
           "R": int(len(keys)), "E": stats["E"], "D": stats["feat_dim"],
@@ -460,8 +544,7 @@ def phase_slice(data, model, dev):
           "scorer_ms_per_superstep": float(np.mean(kernel_ms)),
           "merge_loop_s_run2": stats2["t_merge_loop"],
           "merge_loop_profile": prof,
-          "rerun": agreement(info["order"], info["probs"], order2, probs2),
-          "rerun_deterministic": deterministic,
+          "rerun": rerun, "segment_sums_with_ids_checked": checked,
           "eval": ev})
     return launches
 
@@ -469,29 +552,49 @@ def phase_slice(data, model, dev):
 SEGMENT_SUM_RTOL = 1e-5
 
 
-def capture_segment_sums(fn):
+def capture_segment_sums(fn, keep=True):
     """Run ``fn()`` and return the (values, ids, n_segments, sorted) of
-    every segment sum the merge engine asked for meanwhile."""
+    every segment sum the merge engines asked for meanwhile.  Every call
+    that states ``sorted=True`` is checked on the card: its ids must be
+    non-decreasing (the kernel takes the caller's word for it).
+    ``keep=False`` only checks and counts: the list holds None."""
+    import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
 
     calls = []
     real = md.segment_sum_auto
 
     def record(values, seg_ids, n_segments, sorted=False):
+        if sorted and bool((seg_ids[1:] < seg_ids[:-1]).any()):
+            raise AssertionError(
+                f"segment sum number {len(calls)} states sorted=True but "
+                f"its ids decrease (values {tuple(values.shape)})")
         calls.append((values.contiguous(), seg_ids.long().contiguous(),
-                      int(n_segments), bool(sorted)))
+                      int(n_segments), bool(sorted)) if keep else None)
         return real(values, seg_ids, n_segments, sorted=sorted)
 
-    md.segment_sum_auto = record
+    md.segment_sum_auto = mbd.segment_sum_auto = record
     try:
         fn()
     finally:
-        md.segment_sum_auto = real
+        md.segment_sum_auto = mbd.segment_sum_auto = real
     return calls
 
 
-def check_segment_sum(name, values, ids, S, is_sorted):
-    """One shape of kernel B2 against the plain version on the card."""
+def run_lengths(ids, S):
+    """(mean, longest) run of equal kept ids in a sorted id tensor."""
+    kept = ids[(ids >= 0) & (ids < S)]
+    if kept.numel() == 0:
+        return 0.0, 0
+    counts = torch.unique_consecutive(kept, return_counts=True)[1]
+    return float(counts.double().mean()), int(counts.max())
+
+
+def check_segment_sum(name, values, ids, S, is_sorted, prev_ms=None):
+    """One shape of kernel B2 against the plain version on the card; the
+    sorted entry must also give the bits of the CPU's ``index_add_``, for
+    these values and for their float64 copies.  ``prev_ms``: the time at
+    this shape before the sorted entry's redesign."""
     from glia_tpu_torch.ops.cuda import segment_sum_cuda
     from glia_tpu_torch.ops.segment_csr import segment_sum_torch
 
@@ -512,6 +615,19 @@ def check_segment_sum(name, values, ids, S, is_sorted):
         raise AssertionError(f"segment_sum[{name}]: two launches of the "
                              f"sorted entry point gave different bits")
     on_cpu = segment_sum_torch(values.cpu(), ids.cpu(), S)
+    cpu_bits = bool(torch.equal(got.cpu(), on_cpu))
+    if is_sorted:
+        other = torch.float32 if values.dtype == torch.float64 \
+            else torch.float64
+        cast = values.to(other)
+        cpu_bits_other = bool(torch.equal(
+            segment_sum_cuda(cast, ids, S, sorted=True).cpu(),
+            segment_sum_torch(cast.cpu(), ids.cpu(), S)))
+        if not (cpu_bits and cpu_bits_other):
+            raise AssertionError(
+                f"segment_sum[{name}]: the sorted entry point differs from "
+                f"the CPU's index_add_ ({values.dtype}: {cpu_bits}, "
+                f"{other}: {cpu_bits_other})")
     B = values.shape[0]
     F = values.shape[1] if values.ndim == 2 else 1
     w = values.element_size()
@@ -534,31 +650,71 @@ def check_segment_sum(name, values, ids, S, is_sorted):
     library_ms = cuda_graph_time_ms(library)
     call_ms = cuda_time_ms(kernel, reps=50)
     library_call_ms = cuda_time_ms(library, reps=50)
-    # the bound: values and ids read once, the output zeroed and written;
-    # one add per value
-    bytes_moved = B * F * w + 8 * B + 2 * S * F * w
+    # the bound: every id and the values of the rows this run's ids keep
+    # read once, the output written once; one add per kept value
+    kept = int(((ids >= 0) & (ids < S)).sum())
+    bytes_moved = kept * F * w + 8 * B + S * F * w
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = B * F / FP32_OPS_PER_S * 1e3
+    t_ops = kept * F / FP32_OPS_PER_S * 1e3
     res = {"shape": name, "entry": "sorted" if is_sorted else "atomic",
            "B": B, "F": F, "S": S, "dtype": str(values.dtype),
-           "dropped_rows": int(((ids < 0) | (ids >= S)).sum()),
+           "dropped_rows": B - kept,
            "max_rel_err": rel, "max_abs_err": float(diff.max()),
            "same_bits_two_launches": stable,
-           "same_bits_as_cpu_index_add": bool(torch.equal(got.cpu(),
-                                                          on_cpu)),
+           "same_bits_as_cpu_index_add": cpu_bits,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "call_ms": call_ms, "library_call_ms": library_call_ms,
            "bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    emit({"phase": "kernel", "name": "segment_sum", **res})
+    if is_sorted:
+        res["mean_run"], res["longest_run"] = run_lengths(ids, S)
+    # the earlier time goes on this line only: ``res`` feeds the
+    # ``kernels`` line, whose times are all this run's
+    earlier = {} if prev_ms is None else {"prev_ms": prev_ms}
+    emit({"phase": "kernel", "name": "segment_sum", **res, **earlier})
     return res
 
 
-def phase_kernel_segment(data, rag, dev, seed):
-    """Kernel B2 (segment sum), both entry points, float32, at the shapes
-    the engine="device" path gives it on this section (taken from the
-    merge engine's own calls) and at [200000, 8] -> [4096, 8] with random
-    ids, with and without padding ids."""
+# the sorted entry's device time before its redesign (one thread walking
+# each run from global memory), NVIDIA H100 80GB HBM3 at 700 W
+B2_PREV_MS = {"dedupe_median": 0.00665, "dedupe_mean": 0.00368,
+              "random_sorted": 0.02722}
+
+
+def device_bc_segment_sums(data, rag, model, dev, supersteps=12):
+    """The segment sums of the last of ``supersteps`` supersteps of the
+    device_bc merge loop on this section, named by their call site."""
+    import glia_tpu_torch.graph.merge_bc_device as mbd
+    from glia_tpu_torch.features.config import FeatureConfig
+    from glia_tpu_torch.models.forest import make_label_scorer
+
+    cfg = FeatureConfig.standard(data["pb"], data["intensity"], n_bins=16)
+    scorer = make_label_scorer(model, label=-1, device=dev)
+    calls = capture_segment_sums(lambda: mbd.merge_order_bc_device(
+        rag, cfg, scorer, max_supersteps=supersteps, device=dev))
+    names = ["bc_by_lower", "bc_by_upper", "bc_count_min_u",
+             "bc_count_min_v", "bc_count_max_u", "bc_count_max_v",
+             "bc_dedupe"]
+    if len(calls) != supersteps * len(names):
+        raise AssertionError(f"{len(calls)} segment sums in {supersteps} "
+                             f"device_bc supersteps, expected "
+                             f"{supersteps * len(names)}")
+    last = calls[-len(names):]
+    want_sorted = [True, True, False, False, False, False, True]
+    if [c[3] for c in last] != want_sorted:
+        raise AssertionError("the device_bc loop's segment sums are not "
+                             "the ones this phase expects")
+    return [(n, *c) for n, c in zip(names, last)
+            if n not in ("bc_count_min_v", "bc_count_max_u",
+                         "bc_count_max_v")]
+
+
+def phase_kernel_segment(data, rag, model, dev, seed):
+    """Kernel B2 (segment sum), both entry points, at the shapes the
+    engine="device" path and the device_bc loop give it on this section
+    (taken from the merge engines' own calls), at [200000, 8] ->
+    [4096, 8] with random ids, with and without padding ids, and with one
+    run much longer than a tile."""
     import glia_tpu_torch.graph.merge_device as md
 
     pb, R = data["pb"], rag.n_regions
@@ -576,9 +732,10 @@ def phase_kernel_segment(data, rag, dev, seed):
         lambda: md.merge_batched_device_exact(u, v, s, c, R, device=dev))
     cases = [("dedupe_mean", *mean[0]), ("dedupe_median", *median[0]),
              ("vertex_sizes", *minsize[1]), ("lca_keys", *exact[-2])]
-    if not (mean[0][3] and median[0][3]) or minsize[1][3] or exact[-2][3]:
+    if not (mean[0][3] and median[0][3] and exact[-2][3]) or minsize[1][3]:
         raise AssertionError("the merge engine's segment sums are not the "
                              "ones this phase expects")
+    cases += device_bc_segment_sums(data, rag, model, dev)
 
     rng = np.random.default_rng(seed + 2)
     B, F, S = 200000, 8, 4096
@@ -591,17 +748,21 @@ def phase_kernel_segment(data, rag, dev, seed):
     sorted_padded = ids_sorted.clone()
     sorted_padded[:1000] = -1
     sorted_padded[-10000:] = S
+    # short runs, one run of 30,000 rows (many tiles), short runs again
+    long_run = torch.sort(ids[:50000] % 512).values
+    long_run[10000:40000] = long_run[10000]
     cases += [("random", vals, ids, S, False),
               ("random_padded", vals, padded, S, False),
               ("random_sorted", vals, ids_sorted, S, True),
-              ("random_sorted_padded", vals, sorted_padded, S, True)]
-    shapes = [check_segment_sum(*case) for case in cases]
+              ("random_sorted_padded", vals, sorted_padded, S, True),
+              ("long_run", vals[:50000].contiguous(), long_run, 512, True)]
+    shapes = [check_segment_sum(*case, prev_ms=B2_PREV_MS.get(case[0]))
+              for case in cases]
     # the headline numbers are those of the default policy's superstep
     # (the median sketch's dedupe); every shape is listed beside them
     head = next(r for r in shapes if r["shape"] == "dedupe_median")
     return {"name": "segment_sum", "route": "cuda",
             "source": "glia_tpu_torch/ops/cuda/segment_sum.cu",
-            "src": "glia_tpu_torch/ops/cuda/segment_sum.cu",
             "replaces": "glia_tpu/ops/pallas/segment_csr.py:47",
             "launches": None, "shape": head["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
@@ -675,6 +836,10 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
         rerun = agreement(*runs[0], *runs[1])
         rerun["order_equals_main_path"] = bool(
             np.array_equal(runs[0][0], info["order"]))
+        if not (rerun["identical"] and rerun["order_equals_main_path"]):
+            raise AssertionError(f"card runs of engine=\"device\" (policy "
+                                 f"{policy}) differ in rows or saliencies: "
+                                 f"{rerun}")
 
         # the merge loop alone: wall, then kernels and busy time profiled
         def merge_loop(st):
@@ -753,15 +918,16 @@ def main(argv=None):
     data, seg, rag, feats, model = phase_data(args.side, args.seed,
                                               args.trees, args.depth, dev)
     b1 = phase_kernel(feats, model, args.seed)
-    b2 = phase_kernel_segment(data, rag, dev, args.seed)
+    phase_kernel_forest_shapes(feats, args.seed)
+    b2 = phase_kernel_segment(data, rag, model, dev, args.seed)
     paths = {"device_bc": phase_slice(data, model, dev)}
     device_paths, b1_device = phase_slice_device(
         data, seg, rag, dev, args.seed, args.trees, args.depth)
     paths.update(device_paths)
     # one line per kernel: B1's headline numbers are the device_bc batch's,
     # with the engine="device" batch listed beside them
-    sub = ("path", "shape", "mismatches", "max_abs_err", "ms", "plain_ms",
-           "bound_ms", "bound_by")
+    sub = ("path", "shape", "mismatches", "max_abs_err", "ms",
+           "global_memory_ms", "plain_ms", "bound_ms", "bound_by")
     b1["shapes"] = [{k: r[k] for k in sub} for r in (b1, b1_device)]
     b1["mismatches"] += b1_device["mismatches"]
     b1["max_abs_err"] = max(b1["max_abs_err"], b1_device["max_abs_err"])

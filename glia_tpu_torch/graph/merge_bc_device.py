@@ -27,9 +27,12 @@ fills (group_stats' conventions, so count<=0 rows serialize to zeros,
 feat.hxx:703).
 
 The supersteps run as a Python loop with one host sync each (the loop
-condition).  Sums over edges use ``index_add_``: on the CPU it adds in
-index order, as XLA's scatter does; on CUDA it uses atomics, so the order
-of additions (and a feature's last bit) can change between runs.
+condition).  Sums over edges go through ``segment_sum_auto``.  The float
+sums use its sorted form, which adds each segment's rows in index order on
+the CPU (as XLA's scatter does) and on the card (the CUDA kernel's sorted
+entry point), so two runs give the same bits: the edges are kept sorted by
+their lower endpoint (``e_lo``), and the sums by the upper endpoint go
+through one stable sort per superstep.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..features.config import FeatureConfig
 from ..features.device import (DeviceFeatureSpec, bc_features_dev,
                                counting_hist)
 from ..features.hierarchical import group_stats
+from ..ops.segment_csr import segment_sum_auto
 from .merge_device import order_to_keys
 from .rag import Rag
 
@@ -250,6 +254,8 @@ def build_state(rag: Rag, cfg: FeatureConfig):
     pair_code = lo * np.int64(C) + hi
     uniq, inv = np.unique(pair_code, return_inverse=True)
     E = len(uniq)
+    # np.unique sorts the codes, so eu is non-decreasing: the order the
+    # superstep's dedupe keeps (e_lo of state_to_device)
     eu = (uniq // C).astype(np.int32)
     ev = (uniq % C).astype(np.int32)
     # side: directed pair (a,b) with a==lo is the u side
@@ -311,11 +317,14 @@ def bc_feat_dim(cfg: FeatureConfig, ndim: int) -> int:
             + 3 * cfg.region_feat_dim(ndim, with_saliency=False))
 
 
-
-
 def state_to_device(state_np, device, dtype):
     """The numpy state of ``build_state`` as tensors on ``device``: floats
-    in ``dtype``, indices int64, masks bool."""
+    in ``dtype``, indices int64, masks bool.  Adds ``e_lo``, the ids of the
+    sums by lower endpoint: ``eu`` where it is non-decreasing over all
+    edges, as ``build_state`` leaves it and every superstep keeps it (with
+    the dropped id C for dead edges)."""
+    if np.any(np.diff(np.asarray(state_np["eu"]).astype(np.int64)) < 0):
+        raise ValueError("state edges are not sorted by lower endpoint")
     out = {}
     for k, v in state_np.items():
         a = np.asarray(v)
@@ -325,6 +334,7 @@ def state_to_device(state_np, device, dtype):
             out[k] = torch.as_tensor(a, dtype=torch.int64, device=device)
         else:
             out[k] = torch.as_tensor(a, dtype=dtype, device=device)
+    out["e_lo"] = out["eu"].clone()
     return out
 
 
@@ -332,11 +342,15 @@ def state_to_device(state_np, device, dtype):
 # superstep
 # ---------------------------------------------------------------------------
 
-def _segment_sum(src, index, n):
-    """out[s] = sum of src[i] over index[i] == s (rows of ``src``)."""
-    out = torch.zeros((n,) + tuple(src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
-    return out.index_add_(0, index, src)
+def _segment_sum(src, index, n, sorted=False):
+    """out[s] = sum of src[i] over index[i] == s (rows of ``src``, whose
+    trailing axes are summed as one flat feature axis); ids outside
+    [0, n) are dropped.  ``sorted=True`` states that ``index`` is
+    non-decreasing: each segment is then added in index order, on the card
+    too."""
+    flat = src.reshape(src.shape[0], -1) if src.ndim > 2 else src
+    out = segment_sum_auto(flat, index, n, sorted=sorted)
+    return out.reshape((n,) + tuple(src.shape[1:]))
 
 
 def _scatter_reduce_(target, index, src, how):
@@ -361,8 +375,16 @@ def _component_totals(state, static):
     side_v = e_add[:, P_MV] + e_add[:, P_NV]
     am = alive[:, None]
     tot_badd = state["c_add"][:, static.res_off:]
-    tot_badd = tot_badd + _segment_sum(torch.where(am, side_u, 0.0), eu, C)
-    tot_badd = tot_badd + _segment_sum(torch.where(am, side_v, 0.0), ev, C)
+    # by the lower endpoint: e_lo is eu in the order the dedupe's sort left
+    # (non-decreasing, C for edges dead before it: dropped); an edge that
+    # died in the dedupe sits inside its run and adds zeros
+    tot_badd = tot_badd + _segment_sum(torch.where(am, side_u, 0.0),
+                                       state["e_lo"], C, sorted=True)
+    # by the upper endpoint: a stable sort keeps index order inside each
+    # segment (dead edges sort to the dropped id C)
+    ev_s, by_ev = torch.sort(torch.where(alive, ev, C), stable=True)
+    tot_badd = tot_badd + _segment_sum(torch.where(am, side_v, 0.0)[by_ev],
+                                       ev_s, C, sorted=True)
 
     side_u_min = torch.minimum(e_min[:, P_MU], e_min[:, P_NU])
     side_v_min = torch.minimum(e_min[:, P_MV], e_min[:, P_NV])
@@ -409,7 +431,9 @@ def _excl_reduce(vals_u, vals_v, eu, ev, alive, C, kind):
     _scatter_reduce_(m2, eu, torch.where(beats(z_u, m1[eu]), z_u, fill), how)
     _scatter_reduce_(m2, ev, torch.where(beats(z_v, m1[ev]), z_v, fill), how)
 
-    # achiever counts (duplicated extrema survive exclusion)
+    # achiever counts (duplicated extrema survive exclusion): sums of 0.0
+    # and 1.0 are exact in any order, so the unsorted form gives the same
+    # bits on every run
     c1 = _segment_sum(
         torch.where(alive[:, None] & (z_u == m1[eu]), 1.0, 0.0).to(
             vals_u.dtype), eu, C)
@@ -647,7 +671,7 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
     am3 = alive_s[:, None, None]
     k3 = keep[:, None, None]
     ea_s = e_add[permE]
-    ps = _segment_sum(torch.where(am3, ea_s, 0.0), seg_id, E)
+    ps = _segment_sum(torch.where(am3, ea_s, 0.0), seg_id, E, sorted=True)
     st["e_add"] = torch.where(k3, ps[seg_id], ea_s)
     em_s = e_min[permE]
     pm = torch.full_like(em_s, POS_INF)
@@ -664,6 +688,7 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
     _scatter_reduce_(tbl, seg_id, (alive_s & table_s).to(torch.int64),
                      "amax")
     st["e_table"] = torch.where(keep, tbl[seg_id] > 0, table_s)
+    st["e_lo"] = lo_s
     st["eu"] = eu3[permE]
     st["ev"] = ev3[permE]
     st["e_alive"] = alive_s & keep

@@ -508,10 +508,14 @@ def _exact_saliency_pass(u, v, s, c, order, R, L):
     valid = root[u] == root[v]
 
     # --- exact pooled (s, c) per merge node = LCA-keyed segment sum; the
-    # last of the n_ids + 1 segments is the discard ---
-    seg = torch.where(valid, lca, n_ids)
-    s_tot = segment_sum_auto(torch.where(valid, s, 0.0), seg, n_ids + 1)
-    c_tot = segment_sum_auto(torch.where(valid, c, 0.0), seg, n_ids + 1)
+    # last of the n_ids + 1 segments is the discard.  A stable sort of the
+    # keys keeps index order inside each segment, so the sums add in the
+    # same order on every run ---
+    seg, by_seg = torch.sort(torch.where(valid, lca, n_ids), stable=True)
+    s_tot = segment_sum_auto(torch.where(valid, s, 0.0)[by_seg], seg,
+                             n_ids + 1, sorted=True)
+    c_tot = segment_sum_auto(torch.where(valid, c, 0.0)[by_seg], seg,
+                             n_ids + 1, sorted=True)
     cm = c_tot[r2]
     sm = s_tot[r2]
     stat = torch.where(ok_row & (cm > 0), sm / torch.clamp(cm, min=1.0),

@@ -13,7 +13,7 @@ features against float32 thresholds would flip ties.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -105,23 +105,69 @@ def predict_votes_np(model: ForestModel, X) -> np.ndarray:
     return votes / T
 
 
+def pack_nodes(model: ForestModel):
+    """The forest as one 16-byte record per real node, trees back to back.
+
+    Record = int32 ``[feature, threshold bits, left, right]``; a leaf holds
+    ``feature = -1`` and its class in the ``left`` field.  The real nodes of
+    a tree are its root, its split nodes and their children; they must be a
+    prefix of the tree's N slots (the padding comes last), or this raises.
+    Child indices stay tree-local.  Returns (packed int32 [total, 4],
+    tree_start int64 [T + 1], n_real int64 [T]): tree ``t`` owns records
+    ``tree_start[t] : tree_start[t + 1]``."""
+    feat = model.feature
+    T, N = feat.shape
+    inner = feat >= 0
+    real = inner.copy()
+    real[:, 0] = True
+    t, n = np.nonzero(inner)
+    real[t, model.left[t, n]] = True
+    real[t, model.right[t, n]] = True
+    n_real = N - np.argmax(real[:, ::-1], axis=1).astype(np.int64)
+    prefix = np.arange(N)[None, :] < n_real[:, None]
+    gaps = (prefix & ~real).any(axis=1)
+    if gaps.any():
+        bad = int(np.nonzero(gaps)[0][0])
+        raise ValueError(
+            f"tree {bad}: the real nodes (root, splits and their children) "
+            f"are not a prefix of its {N} slots; padding must come last")
+    rec = np.zeros((T, N, 4), np.int32)
+    rec[..., 0] = np.where(inner, feat, -1)
+    rec[..., 1] = np.where(inner, model.threshold.view(np.int32), 0)
+    rec[..., 2] = np.where(inner, model.left, model.leaf_class)
+    rec[..., 3] = np.where(inner, model.right, 0)
+    tree_start = np.concatenate([[0], np.cumsum(n_real)])
+    if tree_start[-1] >= 2 ** 31:
+        raise ValueError("forest has 2**31 or more real nodes")
+    return np.ascontiguousarray(rec[prefix]), tree_start, n_real
+
+
 @dataclass
 class ForestTables:
-    """A forest's node tables on one device, flattened to [T * N] so that
-    node ``n`` of tree ``t`` sits at ``t * N + n``.  Uploaded once per
-    model and passed to every call (the contract of glia_tpu's
-    ``make_label_scorer(embed=True)``)."""
+    """A forest's node tables on one device.  Uploaded once per model and
+    passed to every call (the contract of glia_tpu's
+    ``make_label_scorer(embed=True)``).
+
+    Two forms of the same forest: the flat arrays [T * N], node ``n`` of
+    tree ``t`` at ``t * N + n``, which the plain walk gathers from; and the
+    packed records of ``pack_nodes``, which the CUDA kernel loads 16 bytes
+    at a time."""
 
     feature: torch.Tensor     # int32
     threshold: torch.Tensor   # float32
     left: torch.Tensor        # int32
     right: torch.Tensor       # int32
     leaf_class: torch.Tensor  # int32
+    packed: torch.Tensor      # int32 [total real nodes, 4]
+    tree_start: torch.Tensor  # int32 [T + 1]
+    n_real: np.ndarray        # int64 [T], on the host (launch planning)
     n_trees: int
     n_nodes: int
     n_classes: int
     max_depth: int
     max_feature: int          # largest split feature index (-1: no splits)
+    # block geometries of the CUDA kernel, by (D, shared-memory limit)
+    plans: dict = field(default_factory=dict)
 
     @classmethod
     def from_model(cls, model: ForestModel, device) -> "ForestTables":
@@ -129,12 +175,15 @@ class ForestTables:
             return torch.as_tensor(np.ascontiguousarray(a).reshape(-1),
                                    dtype=dtype, device=device)
 
+        packed, tree_start, n_real = pack_nodes(model)
         return cls(
             feature=up(model.feature, torch.int32),
             threshold=up(model.threshold, torch.float32),
             left=up(model.left, torch.int32),
             right=up(model.right, torch.int32),
             leaf_class=up(model.leaf_class, torch.int32),
+            packed=torch.as_tensor(packed, device=device),
+            tree_start=up(tree_start, torch.int32), n_real=n_real,
             n_trees=model.n_trees, n_nodes=model.feature.shape[1],
             n_classes=int(model.n_classes), max_depth=int(model.max_depth),
             max_feature=int(model.feature.max(initial=-1)))
@@ -173,6 +222,31 @@ def forest_leaves_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
                           right[flat])
         node = torch.where(f < 0, node, nxt)
     return tree_base + node
+
+
+def forest_leaves_packed_torch(X: torch.Tensor,
+                               tables: ForestTables) -> torch.Tensor:
+    """The walk of ``forest_leaves_torch`` over the packed records, step
+    for step what the CUDA kernel does: one record per step, a negative
+    feature ends the walk.  Returns the same flat indices [B, T]
+    (``t * N + n``) into the flat tables."""
+    X = X.to(torch.float32)
+    B, D = X.shape
+    check_features(tables, D)
+    T, N = tables.n_trees, tables.n_nodes
+    dev = X.device
+    rec = tables.packed.long()
+    thr = tables.packed[:, 1].contiguous().view(torch.float32)
+    start = tables.tree_start[:T].long()[None, :]               # [1, T]
+    rows = torch.arange(B, device=dev)[:, None]
+    node = torch.zeros((B, T), dtype=torch.long, device=dev)
+    for _ in range(tables.max_depth + 1):
+        at = start + node
+        f = rec[at, 0]
+        fv = X[rows, f.clamp(min=0)]
+        nxt = torch.where(fv <= thr[at], rec[at, 2], rec[at, 3])
+        node = torch.where(f < 0, node, nxt)
+    return torch.arange(T, device=dev)[None, :] * N + node
 
 
 def forest_votes_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:

@@ -20,6 +20,7 @@ import shutil
 import threading
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..._build import SharedLibBuild
@@ -31,6 +32,10 @@ SOURCES = {"forest_votes": os.path.join(_HERE, "forest_votes.cu"),
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_CLASSES = 8
+FOREST_THREADS = 1024
+# bytes of a block's shared-memory limit kept back for the forest kernel's
+# statically declared shared variables
+FOREST_STATIC_SMEM = 64
 
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -60,11 +65,12 @@ def kernel_build(name: str) -> SharedLibBuild:
 
 def _bind(name: str, lib: ctypes.CDLL):
     """Declare the C entry points of library ``name``: every one returns
-    the CUDA error of its launch (0: none)."""
+    the CUDA error of its call (0: none)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "forest_votes":
         entries = {"glia_forest_votes":
-                   [p, i, i, p, p, p, p, p, i, i, i, i, p, p]}
+                   [p, i, i, p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p],
+                   "glia_forest_votes_limits": [p, p]}
     else:
         args = [p, p, ll, i, ll, i, p, p]
         entries = {"glia_segment_sum": args, "glia_segment_sum_sorted": args}
@@ -75,12 +81,13 @@ def _bind(name: str, lib: ctypes.CDLL):
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(kernel_build(name).wait())
-            _bind(name, lib)
-            _libs[name] = lib
-        return _libs[name]
+    if name not in _libs:
+        with _lock:
+            if name not in _libs:
+                lib = ctypes.CDLL(kernel_build(name).wait())
+                _bind(name, lib)
+                _libs[name] = lib
+    return _libs[name]
 
 
 def _check(t: torch.Tensor, what: str, dtype, device, numel=None):
@@ -94,10 +101,127 @@ def _check(t: torch.Tensor, what: str, dtype, device, numel=None):
         raise ValueError(f"{what} has {t.numel()} elements, expected {numel}")
 
 
-def forest_votes_cuda(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
+def _call(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream; the device is
+    made current only when it is not already."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
+
+
+# ---------------------------------------------------------------------------
+# forest vote walk
+# ---------------------------------------------------------------------------
+
+def forest_launch_plan(n_real: np.ndarray, D: int, smem_limit: int) -> dict:
+    """Block geometry of ``forest_votes.cu`` for a forest whose trees have
+    ``n_real`` real nodes and samples of ``D`` features, on a device whose
+    blocks may use ``smem_limit`` bytes of shared memory.
+
+    A block of 1024 threads takes ``TS = 2**ts_log2`` samples and
+    ``1024 / TS`` tree lanes.  Its shared memory holds the vote counts
+    (TS * 8 words), ``tree_start`` (T + 1 words, rounded up to 4), the
+    tile's rows of X at an odd stride of ``x_stride`` words, and two
+    buffers of ``buf_nodes`` 16-byte records (``FOREST_STATIC_SMEM`` bytes
+    of the limit stay free for the kernel's static variables).  The trees
+    are staged ``G`` consecutive trees at a time, and G is the largest count
+    (a multiple of the tree lanes where one fits) whose every group fits a
+    buffer.  The largest TS from 256 down to 32 whose buffers hold a stage
+    for every tree lane is taken, else the largest that holds one tree;
+    when not even TS = 32 does (``smem_limit`` 0 asks for that), ``staged``
+    is False and the kernel walks global memory."""
+    n_real = np.asarray(n_real, np.int64)
+    T = len(n_real)
+    start = np.concatenate([[0], np.cumsum(n_real)])
+    tree_words = (T + 1 + 3) // 4 * 4
+    x_stride = D | 1
+    best = None
+    for ts_log2 in (8, 7, 6, 5):
+        TS = 1 << ts_log2
+        TL = FOREST_THREADS // TS
+        fixed = 4 * (TS * MAX_CLASSES + tree_words + TS * x_stride)
+        buf_nodes = (smem_limit - FOREST_STATIC_SMEM - fixed) // 32
+        if buf_nodes < n_real.max():
+            continue
+        G = _largest_group(start, T, TL, buf_nodes)
+        plan = dict(staged=True, ts_log2=ts_log2, x_stride=x_stride, G=G,
+                    buf_nodes=int(buf_nodes))
+        if G >= TL:
+            return plan
+        if best is None:
+            best = plan
+    if best is None:
+        best = dict(staged=False, ts_log2=8, x_stride=D,
+                    G=FOREST_THREADS >> 8, buf_nodes=0)
+    return best
+
+
+def forest_splits(plan: dict, T: int, B: int, n_sm: int) -> int:
+    """How many blocks share a sample tile's stages (``blockIdx.y``): as
+    many as make one wave of blocks over ``n_sm`` SMs, so that a small
+    batch also fills the card; one when the tiles alone fill it."""
+    tiles = -(-B // (1 << plan["ts_log2"]))
+    n_stages = -(-T // plan["G"])
+    return max(1, min(n_stages, n_sm // tiles))
+
+
+def _largest_group(start, T, TL, buf_nodes) -> int:
+    """Largest G such that every group of G consecutive trees (from tree
+    0) has at most ``buf_nodes`` records; multiples of ``TL`` first."""
+    def fits(G):
+        edges = np.minimum(np.arange(0, T + G, G), T)
+        return int(np.diff(start[edges]).max(initial=0)) <= buf_nodes
+
+    top = -(-T // TL) * TL
+    for G in list(range(top, 0, -TL)) + list(range(TL - 1, 0, -1)):
+        if fits(G):
+            return G
+    raise ValueError("no tree fits the buffer")
+
+
+_limits: Dict[int, tuple] = {}
+
+
+def device_limits(device: torch.device) -> tuple:
+    """(SM count, bytes of shared memory a block may ask for) of
+    ``device``, read once."""
+    key = device.index if device.index is not None else -1
+    if key not in _limits:
+        n_sm, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = _lib("forest_votes").glia_forest_votes_limits(
+                ctypes.byref(n_sm), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"reading the device's limits failed: CUDA "
+                               f"error {rc}")
+        _limits[key] = (n_sm.value, smem.value)
+    return _limits[key]
+
+
+def forest_plan_on(tables: ForestTables, B: int, D: int,
+                   device: torch.device, global_memory: bool = False) -> dict:
+    """The launch plan ``forest_votes_cuda`` uses for ``B`` samples of
+    ``D`` features on ``device``: the block geometry (made once per D and
+    kept in ``tables.plans``) and ``n_splits`` for this batch."""
+    n_sm, smem_limit = device_limits(device)
+    key = (D, 0 if global_memory else smem_limit)
+    geometry = tables.plans.get(key)
+    if geometry is None:
+        geometry = tables.plans[key] = forest_launch_plan(tables.n_real, *key)
+    return dict(geometry, n_splits=forest_splits(geometry, tables.n_trees,
+                                                 B, n_sm))
+
+
+def forest_votes_cuda(X: torch.Tensor, tables: ForestTables,
+                      global_memory: bool = False) -> torch.Tensor:
     """Forest vote fractions [B, C] float32 by the CUDA kernel
     ``forest_votes.cu``.  X: float32 [B, D] contiguous on a CUDA device;
-    ``tables``: the forest's node tables on the same device."""
+    ``tables``: the forest's node tables on the same device.
+    ``global_memory=True`` takes the instantiation that walks global
+    memory, which a forest too large for shared memory takes by itself
+    (same result; for checks)."""
     if X.device.type != "cuda":
         raise ValueError(f"forest_votes_cuda takes CUDA tensors, got X on "
                          f"{X.device}")
@@ -109,30 +233,39 @@ def forest_votes_cuda(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
     if not 1 <= C <= MAX_CLASSES:
         raise ValueError(f"forest_votes_cuda supports 1..{MAX_CLASSES} "
                          f"classes, got {C}")
+    if T < 1 or D < 1:
+        raise ValueError(f"forest_votes_cuda needs at least one tree and "
+                         f"one feature, got T = {T}, D = {D}")
     check_features(tables, D)
-    for name, dtype in (("feature", torch.int32),
-                        ("threshold", torch.float32),
-                        ("left", torch.int32), ("right", torch.int32),
-                        ("leaf_class", torch.int32)):
-        _check(getattr(tables, name), f"tables.{name}", dtype, X.device,
-               T * N)
+    _check(tables.leaf_class, "tables.leaf_class", torch.int32, X.device,
+           T * N)
+    _check(tables.tree_start, "tables.tree_start", torch.int32, X.device,
+           T + 1)
+    _check(tables.packed, "tables.packed", torch.int32, X.device,
+           4 * int(tables.n_real.sum()))
     out = torch.empty((B, C), dtype=torch.float32, device=X.device)
     if B == 0:
         return out
     lib = _lib("forest_votes")
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    with torch.cuda.device(X.device):
-        rc = lib.glia_forest_votes(
-            X.data_ptr(), B, D, tables.feature.data_ptr(),
-            tables.threshold.data_ptr(), tables.left.data_ptr(),
-            tables.right.data_ptr(), tables.leaf_class.data_ptr(), T, N, C,
-            tables.max_depth + 1, out.data_ptr(), stream)
+    plan = forest_plan_on(tables, B, D, X.device, global_memory)
+    tiles = -(-B // (1 << plan["ts_log2"]))
+    scratch = torch.zeros(B * C + tiles, dtype=torch.int32, device=X.device)
+    rc = _call(X.device, lib.glia_forest_votes, X.data_ptr(), B, D,
+               tables.packed.data_ptr(), tables.tree_start.data_ptr(),
+               tables.leaf_class.data_ptr(), T, N, C, tables.max_depth + 1,
+               int(plan["staged"]), plan["ts_log2"], plan["x_stride"],
+               plan["G"], plan["buf_nodes"], plan["n_splits"],
+               scratch.data_ptr(), out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"forest_votes kernel launch failed: CUDA error "
-                           f"{rc}")
+                           f"{rc} (plan {plan})")
     launches["forest_votes"] += 1
     return out
 
+
+# ---------------------------------------------------------------------------
+# segment sum
+# ---------------------------------------------------------------------------
 
 def segment_sum_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
                      n_segments: int, sorted: bool = False) -> torch.Tensor:
@@ -142,16 +275,19 @@ def segment_sum_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     >= n_segments are dropped.  ``sorted=True`` states that the ids are
     non-decreasing and selects the entry point without atomics (same bits
     on every launch); it is not verified on the card."""
-    if values.device.type != "cuda":
+    dev = values.device
+    if dev.type != "cuda":
         raise ValueError(f"segment_sum_cuda takes CUDA tensors, got values "
-                         f"on {values.device}")
+                         f"on {dev}")
     if values.ndim not in (1, 2):
         raise ValueError(f"values must be [B] or [B, F], got shape "
                          f"{tuple(values.shape)}")
-    if values.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"values has dtype {values.dtype}, expected "
+    dtype = values.dtype
+    if dtype is not torch.float32 and dtype is not torch.float64:
+        raise ValueError(f"values has dtype {dtype}, expected "
                          f"float32 or float64")
-    _check(values, "values", values.dtype, values.device)
+    if not values.is_contiguous():
+        raise ValueError("values must be contiguous")
     B = values.shape[0]
     F = values.shape[1] if values.ndim == 2 else 1
     S = int(n_segments)
@@ -160,19 +296,25 @@ def segment_sum_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     if seg_ids.ndim != 1:
         raise ValueError(f"seg_ids must be [B], got shape "
                          f"{tuple(seg_ids.shape)}")
-    _check(seg_ids, "seg_ids", torch.int64, values.device, B)
-    out = torch.zeros((S,) + tuple(values.shape[1:]), dtype=values.dtype,
-                      device=values.device)
+    _check(seg_ids, "seg_ids", torch.int64, dev, B)
+    out = torch.zeros((S,) + values.shape[1:], dtype=dtype, device=dev)
     if B == 0 or S == 0 or F == 0:
         return out
-    lib = _lib("segment_sum")
-    fn = lib.glia_segment_sum_sorted if sorted else lib.glia_segment_sum
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    with torch.cuda.device(values.device):
-        rc = fn(values.data_ptr(), seg_ids.data_ptr(), B, F, S,
-                int(values.dtype == torch.float64), out.data_ptr(), stream)
+    fns = _segment_fns or _load_segment_fns()
+    rc = _call(dev, fns[bool(sorted)], values.data_ptr(), seg_ids.data_ptr(),
+               B, F, S, int(dtype is torch.float64), out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{rc}")
     launches["segment_sum"] += 1
     return out
+
+
+# the two entry points of segment_sum.cu, [atomic, sorted], looked up once
+_segment_fns: list = []
+
+
+def _load_segment_fns() -> list:
+    lib = _lib("segment_sum")
+    _segment_fns[:] = [lib.glia_segment_sum, lib.glia_segment_sum_sorted]
+    return _segment_fns

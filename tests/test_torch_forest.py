@@ -3,7 +3,9 @@
 The port's plain walk (glia_tpu_torch.models.forest.forest_votes_torch)
 against glia_tpu's host oracle predict_votes_np, its XLA gather walk
 forest_votes_jax_fn and its Pallas kernel forest_votes_pallas_fn (in
-interpret mode), on sklearn forests trained by glia_tpu's train_forest.
+interpret mode), on sklearn forests trained by glia_tpu's train_forest;
+and the packed node records and the launch plan of the CUDA kernel (the
+walk over the records ends on the leaves of the walk over the flat tables).
 The JAX forms run jitted, as glia_tpu runs them (make_predict_votes_jax,
 make_forest_votes_pallas, the merge loop): under jit XLA computes votes / T
 as count * fl32(1/T), which the port reproduces.  Tolerance: exact.  The
@@ -28,13 +30,22 @@ from glia_tpu.ops.pallas.forest import forest_votes_pallas_fn
 from glia_tpu_torch.models.forest import (
     ForestModel,
     ForestTables,
+    forest_leaves_packed_torch,
     forest_leaves_torch,
     forest_votes,
     forest_votes_torch,
     make_label_scorer,
+    pack_nodes,
     predict_label_fraction,
 )
 from glia_tpu_torch.models.forest import predict_votes_np as port_votes_np
+from glia_tpu_torch.ops.cuda import (
+    FOREST_STATIC_SMEM,
+    FOREST_THREADS,
+    MAX_CLASSES,
+    forest_launch_plan,
+    forest_splits,
+)
 
 
 def _to_port(m):
@@ -218,3 +229,103 @@ def test_device_backend_needs_cuda_unless_cpu_is_named(forest_case,
                                backend="device")
     # the host walk needs no device
     predict_label_fraction(_to_port(model), X, label=-1, backend="np")
+
+
+# ---------------------------------------------------------------------------
+# the packed node records the CUDA kernel reads, and its launch plan
+# ---------------------------------------------------------------------------
+
+def _stump_forest():
+    """Three trees of [T, 5] slots: a lone leaf, a stump, and a tree of
+    five nodes; the first two end in padding."""
+    f = np.array([[-1, -1, -1, -1, -1], [2, -1, -1, -1, -1],
+                  [0, 1, -1, -1, -1]], np.int32)
+    thr = np.array([[0, 0, 0, 0, 0], [0.5, 0, 0, 0, 0],
+                    [0.25, 0.75, 0, 0, 0]], np.float32)
+    left = np.array([[0, 0, 0, 0, 0], [1, 0, 0, 0, 0], [1, 3, 0, 0, 0]])
+    right = np.array([[0, 0, 0, 0, 0], [2, 0, 0, 0, 0], [2, 4, 0, 0, 0]])
+    cls = np.array([[1, 0, 0, 0, 0], [0, 0, 1, 0, 0], [0, 0, 1, 1, 0]])
+    return ForestModel.from_arrays(f, thr, left, right, cls, 2, 2,
+                                   np.array([-1, 1]))
+
+
+def test_packed_walk_ends_on_the_same_leaves(forest_case):
+    model, X = forest_case
+    tables = ForestTables.from_model(_to_port(model), "cpu")
+    Xt = torch.from_numpy(X)
+    assert torch.equal(forest_leaves_packed_torch(Xt, tables),
+                       forest_leaves_torch(Xt, tables))
+
+
+def test_packed_records_of_stumps_and_padding():
+    model = _stump_forest()
+    packed, start, n_real = pack_nodes(model)
+    np.testing.assert_array_equal(n_real, [1, 3, 5])
+    np.testing.assert_array_equal(start, [0, 1, 4, 9])
+    assert packed.shape == (9, 4) and packed.dtype == np.int32
+    # a leaf: feature -1, its class in the left field
+    np.testing.assert_array_equal(packed[0], [-1, 0, 1, 0])
+    np.testing.assert_array_equal(
+        packed[1], [2, np.float32(0.5).view(np.int32), 1, 2])
+    np.testing.assert_array_equal(packed[3], [-1, 0, 1, 0])
+    tables = ForestTables.from_model(model, "cpu")
+    X = torch.tensor([[0.1, 0.9, 0.5], [0.25, 0.75, 0.6], [0.9, 0.0, 0.0]])
+    want = forest_leaves_torch(X, tables)
+    assert torch.equal(forest_leaves_packed_torch(X, tables), want)
+    np.testing.assert_array_equal(want.numpy(),
+                                  [[0, 6, 14], [0, 7, 13], [0, 6, 12]])
+
+
+def test_real_nodes_must_be_a_prefix():
+    model = _stump_forest()
+    # the stump's right child moves behind a slot that nothing refers to
+    model.right[1, 0] = 3
+    with pytest.raises(ValueError, match="tree 1.*prefix"):
+        pack_nodes(model)
+    with pytest.raises(ValueError, match="prefix"):
+        ForestTables.from_model(model, "cpu")
+
+
+@pytest.mark.parametrize("B,D", [(23807, 143), (8919, 148), (100, 7),
+                                 (5000, 1000)])
+def test_launch_plan_fits_the_device(B, D):
+    """Every stage fits its buffer, the block fits the shared memory, and
+    the split does not exceed the stages (H100: 132 SMs, 232,448 bytes)."""
+    n_real = np.random.default_rng(3).integers(50, 648, 255)
+    limit = 232448
+    plan = forest_launch_plan(n_real, D, limit)
+    assert plan["staged"]
+    TS, G = 1 << plan["ts_log2"], plan["G"]
+    assert 32 <= TS <= 256 and FOREST_THREADS % TS == 0
+    start = np.concatenate([[0], np.cumsum(n_real)])
+    edges = np.minimum(np.arange(0, 255 + G, G), 255)
+    assert np.diff(start[edges]).max() <= plan["buf_nodes"]
+    assert plan["x_stride"] >= D and plan["x_stride"] % 2 == 1
+    smem = 4 * (TS * MAX_CLASSES + 256 + TS * plan["x_stride"]) \
+        + 32 * plan["buf_nodes"]
+    assert smem + FOREST_STATIC_SMEM <= limit
+    n_splits = forest_splits(plan, 255, B, 132)
+    assert 1 <= n_splits <= -(-255 // G)
+    # the blocks of all tiles make at most one wave, unless the tiles
+    # alone are more than the SMs
+    assert n_splits == 1 or -(-B // TS) * n_splits <= 132
+    # a smaller batch is split further, to fill the SMs
+    assert forest_splits(plan, 255, 64, 132) >= n_splits
+
+
+@pytest.mark.parametrize("n_real,D", [([40000] * 4, 143), ([500] * 16, 4000)],
+                         ids=["large_tree", "wide_rows"])
+def test_launch_plan_falls_back_to_global_memory(n_real, D):
+    plan = forest_launch_plan(np.array(n_real), D, 232448)
+    assert not plan["staged"] and plan["buf_nodes"] == 0
+    assert 1 <= forest_splits(plan, len(n_real), 1000, 132) \
+        <= -(-len(n_real) // plan["G"])
+
+
+def test_launch_plan_without_shared_memory_walks_global_memory():
+    """A limit of 0 bytes (what ``global_memory=True`` plans with) gives the
+    global-memory instantiation for a forest that would fit."""
+    n_real = np.random.default_rng(3).integers(50, 648, 255)
+    assert forest_launch_plan(n_real, 143, 232448)["staged"]
+    plan = forest_launch_plan(n_real, 143, 0)
+    assert not plan["staged"] and plan["x_stride"] == 143

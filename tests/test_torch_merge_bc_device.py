@@ -184,3 +184,36 @@ def test_max_supersteps_caps_the_loop(case, jax_linear_orders):
     assert stats["n_supersteps"] == 2 and 0 < len(got) < len(want)
     np.testing.assert_array_equal(got, want[:len(got)])
     np.testing.assert_allclose(probs, want_probs[:len(got)], rtol=1e-9)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_edges_stay_sorted_by_lower_endpoint(case, name):
+    """Over a whole merge: ``e_lo`` is non-decreasing, equals ``eu`` on
+    every alive edge and on every edge its sum does not drop, so the sums
+    by lower endpoint may state sorted ids (segment_sum_torch checks the
+    order on the CPU at every call, too)."""
+    _, rag, cfgs = case
+    cfg = cfgs[name]
+    state_np, static = mbd.build_state(rag, cfg)
+    state = mbd.state_to_device(state_np, torch.device("cpu"), torch.float64)
+    port_fn = _linear(_linear_weights(cfg))[1]
+    n_steps, n_dead_inside = 0, 0
+    while bool((state["e_alive"] & state["e_table"]).any()) and n_steps < 40:
+        lo, eu, alive = state["e_lo"], state["eu"], state["e_alive"]
+        assert bool((lo[1:] >= lo[:-1]).all())
+        assert bool(((lo == eu) | (lo == static.C)).all())
+        assert bool((lo[alive] == eu[alive]).all())
+        n_dead_inside += int((~alive & (lo < static.C)).sum())
+        state = mbd.superstep(state, static, port_fn)[0]
+        n_steps += 1
+    assert n_steps > 1
+    # duplicates that died in a dedupe stay inside their run
+    assert n_dead_inside > 0
+
+
+def test_state_to_device_refuses_unsorted_edges(case):
+    _, rag, cfgs = case
+    state_np, _ = mbd.build_state(rag, cfgs["standard"])
+    state_np = dict(state_np, eu=state_np["eu"][::-1].copy())
+    with pytest.raises(ValueError, match="sorted by lower endpoint"):
+        mbd.state_to_device(state_np, torch.device("cpu"), torch.float64)

@@ -5,8 +5,10 @@ its dispatcher) against glia_tpu's Pallas kernel in interpret mode (rtol
 1e-3: the TPU kernel multiplies one-hot rows at bf16 input precision),
 against jax.ops.segment_sum and numpy (rtol 1e-5 in float32, 1e-12 in
 float64); ops/segment.py against glia_tpu.ops.segment on ragged segments
-with empty segments and padding ids (rtol 1e-12, float64).  Inputs come
-from numpy generators with fixed seeds.
+with empty segments and padding ids (rtol 1e-12, float64); the device_bc
+engine's ``_segment_sum`` (sorted ids with a dropped tail, unsorted ids
+through a stable sort, counts, the dedupe) against the ``index_add_`` it
+replaced, bit for bit.  Inputs come from numpy generators with fixed seeds.
 """
 
 import jax
@@ -226,3 +228,71 @@ def test_segment_median_sorted_matches():
     got = tseg.segment_median_sorted(_t(vals), _t(ptr)).numpy()
     np.testing.assert_array_equal(got, want)
     assert got[1] == -1.0 and got[4] == -1.0
+
+
+# ---------------------------------------------------------------------------
+# the device_bc engine's sums: routed through segment_sum_auto, the same bits
+# as the index_add_ they replace
+# ---------------------------------------------------------------------------
+
+def _index_add(src, index, n):
+    """The form merge_bc_device._segment_sum had: one index_add_ on zeros
+    (every id inside [0, n))."""
+    out = torch.zeros((n,) + tuple(src.shape[1:]), dtype=src.dtype)
+    return out.index_add_(0, index, src)
+
+
+def _edge_case(dtype, seed=21, E=600, C=90):
+    """Edges sorted by lower endpoint with a tail of dead edges, as a
+    superstep's dedupe leaves them."""
+    rng = np.random.default_rng(seed)
+    eu = np.sort(rng.integers(0, C - 1, E))
+    ev = eu + 1 + rng.integers(0, 5, E)
+    ev = np.minimum(ev, C - 1)
+    alive = rng.random(E) < 0.7
+    n_tail = 80
+    alive[-n_tail:] = False
+    e_lo = eu.copy()
+    e_lo[-n_tail:] = C                      # dead before the sort: dropped
+    vals = rng.normal(0, 1, (E, 4, 7)).astype(dtype)
+    return (torch.from_numpy(a) for a in (eu, ev, alive, e_lo, vals))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("site", ["by_lower", "by_upper", "counts",
+                                  "dedupe", "dedupe_3d"])
+def test_bc_segment_sum_routing_keeps_the_bits(site, dtype):
+    from glia_tpu_torch.graph.merge_bc_device import _segment_sum
+
+    C = 90
+    eu, ev, alive, e_lo, vals = _edge_case(dtype, C=C)
+    am = alive[:, None]
+    side = vals[:, 0] + vals[:, 1]
+    if site == "by_lower":
+        # sorted ids with a dropped tail; dead edges inside a run add zeros
+        src = torch.where(am, side, 0.0)
+        got = _segment_sum(src, e_lo, C, sorted=True)
+        want = _index_add(src, eu, C)
+    elif site == "by_upper":
+        # unsorted ids through one stable sort
+        src = torch.where(am, side, 0.0)
+        ids, perm = torch.sort(torch.where(alive, ev, C), stable=True)
+        got = _segment_sum(src[perm], ids, C, sorted=True)
+        want = _index_add(src, ev, C)
+    elif site == "counts":
+        src = torch.where(am & (side > 0), 1.0, 0.0).to(vals.dtype)
+        got = _segment_sum(src, ev, C)
+        want = _index_add(src, ev, C)
+    else:
+        first = torch.from_numpy(np.random.default_rng(5).random(len(eu))
+                                 < 0.6)
+        first[0] = True
+        seg_id = torch.cumsum(first.to(torch.int64), 0) - 1
+        src = torch.where(alive[:, None, None], vals, 0.0)
+        if site == "dedupe":
+            src = src.reshape(len(eu), -1)
+        got = _segment_sum(src, seg_id, len(eu), sorted=True)
+        want = _index_add(src, seg_id, len(eu))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
