@@ -14,9 +14,11 @@ internal node r2 with children [node(r0), node(r1)].
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+
+FMAX = np.finfo(np.float64).max
 
 
 @dataclass
@@ -132,6 +134,58 @@ def node_potentials(tree: MergeTree, merge_probs) -> np.ndarray:
                 pot[c] *= psplit
     pot[tree.root] *= pot[tree.root]
     return pot
+
+
+def gen_merge_paths(order, path_length: Optional[int] = None,
+                    min_path_length: int = 1) -> List[List[int]]:
+    """genMergePaths (tree_build.hxx:125-180).
+
+    Without ``path_length``: root paths starting at merges whose both inputs
+    are leaves, following parents to the root; returns merge-index paths.
+    With ``path_length``: every merge starts a path, extended up to
+    ``path_length``; kept if it reaches full length, or is >= min length
+    AND starts at a leaf-leaf merge.
+    """
+    order = np.asarray(order, dtype=np.int64).reshape(-1, 3)
+    n = len(order)
+    non_leaf = {}
+    child_merge = {}
+    starts = []
+    all_paths = []
+    for i in range(n):
+        child_merge[int(order[i, 0])] = i
+        child_merge[int(order[i, 1])] = i
+        non_leaf[int(order[i, 2])] = i
+        leaf_leaf = (int(order[i, 0]) not in non_leaf
+                     and int(order[i, 1]) not in non_leaf)
+        if path_length is None:
+            if leaf_leaf:
+                starts.append(i)
+        else:
+            all_paths.append([i])
+    paths = []
+    if path_length is None:
+        for s in starts:
+            path = [s]
+            key = int(order[path[-1], 2])
+            while key in child_merge:
+                path.append(child_merge[key])
+                key = int(order[path[-1], 2])
+            paths.append(path)
+    else:
+        non_leaf_keys = set(int(order[i, 2]) for i in range(n))
+        for path in all_paths:
+            key = int(order[path[-1], 2])
+            while key in child_merge and len(path) < path_length:
+                path.append(child_merge[key])
+                key = int(order[path[-1], 2])
+            i0 = path[0]
+            leaf_leaf = (int(order[i0, 0]) not in non_leaf_keys
+                         and int(order[i0, 1]) not in non_leaf_keys)
+            if len(path) == path_length or (
+                    len(path) >= min_path_length and leaf_leaf):
+                paths.append(path)
+    return paths
 
 
 def pairs_lca(tree: MergeTree, pair_leaf_a, pair_leaf_b) -> np.ndarray:

@@ -1,5 +1,6 @@
 """ctypes bindings for the C++ host runtime: watershed, the serial
-pre-merge loop, connected components and the exact-saliency replays.
+greedy merge and pre-merge loops, connected components and the
+exact-saliency replays.
 
 ``src/glia_native.cc`` is this package's own copy of glia_tpu's C++
 runtime.  It is compiled with g++ at first use into ``.build/glia_tpu_torch/``
@@ -38,6 +39,11 @@ def get_lib():
         p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         p_f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.glia_greedy_merge.restype = i64
+        lib.glia_greedy_merge.argtypes = [
+            i64, p_i64, p_i64, p_i64, p_f64, ctypes.c_int,
+            i64, p_i64, p_i64, p_i64, p_f64, i64,
+        ]
         lib.glia_greedy_merge_premerge.restype = i64
         lib.glia_greedy_merge_premerge.argtypes = [
             i64, p_i64, p_i64, p_i64, p_f64,
@@ -63,6 +69,37 @@ def get_lib():
         ]
         _lib = lib
         return _lib
+
+
+_POLICY_IDS = {"median": 0, "mean": 1, "median_minsize": 2}
+
+
+def greedy_merge_native(rag, pb_image, policy="median"):
+    """Exact serial greedy merge by the C++ engine (the reference's
+    merge_order_pb loop) for the policies median, mean and median_minsize.
+    Returns (order [n, 3] int64 label keys, saliencies [n] float64: each
+    merge's boundary statistic when it was popped)."""
+    if policy not in _POLICY_IDS:
+        raise ValueError(f"policy {policy!r} (median|mean|median_minsize)")
+    lib = get_lib()
+    pb = np.ascontiguousarray(np.asarray(pb_image).ravel(), dtype=np.float64)
+    edge_vals = pb[rag.edge_pixels]
+    u = np.ascontiguousarray(rag.edges[:, 0], dtype=np.int64)
+    v = np.ascontiguousarray(rag.edges[:, 1], dtype=np.int64)
+    ptr = np.ascontiguousarray(rag.edge_ptr, dtype=np.int64)
+    keys = np.ascontiguousarray(rag.keys, dtype=np.int64)
+    sizes = np.ascontiguousarray(
+        rag.sizes if rag.sizes is not None else np.zeros_like(keys),
+        dtype=np.int64,
+    )
+    max_merges = max(rag.n_regions - 1, 0)
+    order = np.zeros(max(max_merges * 3, 1), dtype=np.int64)
+    sals = np.zeros(max(max_merges, 1), dtype=np.float64)
+    n = lib.glia_greedy_merge(
+        rag.n_edges, u, v, ptr, np.ascontiguousarray(edge_vals),
+        _POLICY_IDS[policy], len(keys), keys, sizes, order, sals, max_merges,
+    )
+    return order[: n * 3].reshape(-1, 3).copy(), sals[:n].copy()
 
 
 def pre_merge_native(rag, pb_image, size_thresholds=(50,),

@@ -1,19 +1,27 @@
-"""High-level HMT inference pipeline (PyTorch port).
+"""High-level HMT pipeline (PyTorch port of glia_tpu.pipeline).
 
-The ported slices of glia_tpu.pipeline, both ending in greedy tree
-resolution -> final segmentation -> eval (VI / adapted Rand):
+Training, on the host up to the classifier, which trains on the device:
+
+  watershed -> pre_merge -> RAG -> host merge order (C++) -> merge-tree
+  features + merge/split labels -> hmt_train(classifier="mlp"): MLP2 with
+  Adam; hmt_train_sshmt: SSHMT Logsig over the "simple" features
+
+Inference, ``hmt_segment``, ending in tree resolution (greedy or CCM) ->
+final segmentation -> eval (VI / adapted Rand):
 
   engine="device_bc": watershed -> pre_merge -> RAG -> classifier-in-the-
   loop merge order on the device (BC features + forest scores every
   superstep)
 
   engine="device": watershed -> pre_merge -> RAG -> pb-policy merge order
-  on the device with exact saliencies -> host BC features of the merge
-  tree -> forest probabilities
+  on the device with exact saliencies -> host features of the merge tree
+  -> merge probabilities from the classifier
 
-The other engines and modes of glia_tpu's ``hmt_segment`` are not ported
-yet; asking for them raises NotImplementedError naming the ROADMAP.md item
-that ports them.
+  engine="host": the same with the serial C++ merge order
+
+Forest training (hmt_train with classifier "rf" / "rf_ensemble") is not
+ported yet; asking for it raises NotImplementedError naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -28,24 +36,30 @@ import torch
 from .device import DeviceLike, resolve_device
 from .features.config import FeatureConfig
 from .features.hierarchical import TreeFeatures
+from .features.labels import bc_labels
 from .graph.merge import apply_merge_order
 from .graph.merge_bc_device import merge_order_bc_device
 from .graph.merge_device import greedy_merge_device
 from .graph.rag import build_rag
 from .graph.tree import build_tree, node_potentials
+from .infer.ccm import segment_ccm_picks
 from .infer.greedy import resolve_tree_greedy
 from .infer.segment import final_segmentation
+from .learn.predict import (feature_minmax, predict_logsig, predict_mlp2,
+                            rescale_features)
+from .learn.sshmt import train_sshmt
 from .metrics import eval_ri, eval_vi
 from .models.forest import (ForestModel, make_label_scorer,
                             predict_label_fraction)
-from .native import pre_merge_native, watershed_native
+from .models.train_ensemble import train_mlp_supervised
+from .native import greedy_merge_native, pre_merge_native, watershed_native
 
-_NOT_PORTED = {
-    "host": "engine='host' (serial C++ BC engine, glia_bc.cc) is not "
-            "ported yet: ROADMAP.md, modules to port, item 4",
-    "ccm": "mode='ccm' (CCM tree resolution) is not ported yet: "
-           "ROADMAP.md, modules to port, item 3",
-}
+KINDS = ("rf", "mlp", "logsig")
+FEATURE_SETS = ("full", "simple")
+NO_FOREST_TRAINER = (
+    "hmt_train(classifier={!r}) needs a random-forest trainer, which the "
+    "port does not have yet (glia_tpu's is sklearn): ROADMAP.md, modules "
+    "to port, item 11")
 
 
 def watershed(pb, level=0.0):
@@ -65,42 +79,87 @@ def pre_merge(labels, pb, size_thresholds=(50,), rpb_threshold=0.5):
 
 @dataclass
 class HmtModel:
-    """Trained boundary forest + feature configuration knobs (glia_tpu's
-    HmtModel with kind="rf" and the full BC feature set, the only kind
-    ported).  ``policy`` is the pb statistic the merge order of
-    engine="device" follows: the one the forest was trained with."""
+    """Trained boundary classifier + feature configuration knobs
+    (glia_tpu's HmtModel).
 
-    forest: ForestModel
+    kind: "rf" (``forest``), "mlp" (MLP2 with min-max rescale, pred_mlp
+    semantics; ``extra`` = {w, minmax, n1, n2}) or "logsig" (SSHMT Logsig;
+    ``extra`` = {w, minmax[, history]}).  feature_set: "full" (the BC
+    vector) or "simple" (selectFeatures).  ``policy`` is the pb statistic
+    the merge order of engines "host" and "device" follows: the one the
+    classifier was trained with."""
+
+    forest: Optional[ForestModel]
     n_bins: int = 16
     boundary_thresholds: tuple = (0.2, 0.5, 0.8)
     policy: str = "median"
+    kind: str = "rf"
+    extra: Optional[dict] = None
+    feature_set: str = "full"
 
     def predict_merge_prob(self, feats, backend="np",
-                           device: DeviceLike = None):
-        """Merge probability = vote fraction for label -1
-        (BC_LABEL_MERGE); ``backend`` as in predict_label_fraction."""
-        return predict_label_fraction(self.forest, feats, label=-1,
-                                      backend=backend, device=device)
+                           device: DeviceLike = None,
+                           dtype: Optional[torch.dtype] = None):
+        """Merge probability per row of ``feats``.  Forests: vote fraction
+        for label -1 (BC_LABEL_MERGE), ``backend`` as in
+        predict_label_fraction.  MLP2 and Logsig run on ``device`` (the
+        CUDA card by default) in ``dtype``."""
+        if self.kind == "rf":
+            return predict_label_fraction(self.forest, feats, label=-1,
+                                          backend=backend, device=device)
+        m = self.extra
+        if self.kind == "mlp":
+            return predict_mlp2(m["w"], feats, m["minmax"], m["n1"],
+                                m["n2"], device=device, dtype=dtype)
+        if self.kind == "logsig":
+            if m.get("minmax") is not None:
+                feats = rescale_features(feats, m["minmax"])
+            return predict_logsig(m["w"], feats, device=device, dtype=dtype)
+        raise ValueError(f"model kind {self.kind!r} ({'|'.join(KINDS)})")
 
 
-def hmt_model_from_arrays(feature, threshold, left, right, leaf_class,
-                          n_classes, max_depth, classes, n_bins=16,
+def hmt_model_from_arrays(feature=None, threshold=None, left=None,
+                          right=None, leaf_class=None, n_classes=None,
+                          max_depth=None, classes=None, n_bins=16,
                           boundary_thresholds=(0.2, 0.5, 0.8),
-                          policy="median", kind="rf",
-                          feature_set="full") -> HmtModel:
+                          policy="median", kind="rf", feature_set="full",
+                          w=None, minmax=None, n1=None, n2=None) -> HmtModel:
     """An HmtModel from the fields of glia_tpu's HmtModel passed as plain
-    values and numpy arrays (its forest's node arrays first).  Only
-    kind="rf" with feature_set="full" is ported; anything else raises."""
-    if kind != "rf":
-        raise ValueError(f"model kind {kind!r} is not ported (rf)")
-    if feature_set != "full":
-        raise ValueError(f"feature_set {feature_set!r} is not ported (full)")
-    forest = ForestModel.from_arrays(feature, threshold, left, right,
-                                     leaf_class, n_classes, max_depth,
-                                     classes)
+    values and numpy arrays: for kind="rf" its forest's node arrays (the
+    first eight arguments), for kind="mlp" its extra's ``w``, ``minmax``,
+    ``n1`` and ``n2``, for kind="logsig" ``w`` and ``minmax``.  Other
+    kinds raise."""
+    if kind not in KINDS:
+        raise ValueError(f"model kind {kind!r} is not ported "
+                         f"({'|'.join(KINDS)})")
+    if feature_set not in FEATURE_SETS:
+        raise ValueError(f"feature_set {feature_set!r} "
+                         f"({'|'.join(FEATURE_SETS)})")
+    tree_arrays = (feature, threshold, left, right, leaf_class, n_classes,
+                   max_depth, classes)
+    forest, extra = None, None
+    if kind == "rf":
+        if any(a is None for a in tree_arrays) or w is not None:
+            raise ValueError("kind='rf' takes the eight forest arrays and "
+                             "no weights")
+        forest = ForestModel.from_arrays(*tree_arrays)
+    else:
+        need = (w, minmax, n1, n2) if kind == "mlp" else (w,)
+        if any(a is None for a in need) or any(
+                a is not None for a in tree_arrays):
+            takes = ("w, minmax, n1 and n2" if kind == "mlp"
+                     else "w and an optional minmax")
+            raise ValueError(f"kind={kind!r} takes {takes} and no forest "
+                             f"arrays")
+        extra = {"w": np.asarray(w, dtype=np.float64),
+                 "minmax": (None if minmax is None
+                            else np.asarray(minmax, dtype=np.float64))}
+        if kind == "mlp":
+            extra.update(n1=int(n1), n2=int(n2))
     return HmtModel(forest=forest, n_bins=int(n_bins),
                     boundary_thresholds=tuple(boundary_thresholds),
-                    policy=policy)
+                    policy=policy, kind=kind, extra=extra,
+                    feature_set=feature_set)
 
 
 def _features_for(seg, pb, intensity, model_cfg, order, sals):
@@ -108,7 +167,163 @@ def _features_for(seg, pb, intensity, model_cfg, order, sals):
         pb, intensity, n_bins=model_cfg.n_bins,
         boundary_thresholds=model_cfg.boundary_thresholds)
     rag = build_rag(seg, contour_only=False)
-    return TreeFeatures(rag, order, cfg, saliencies=sals).bc_features()
+    tf = TreeFeatures(rag, order, cfg, saliencies=sals)
+    if model_cfg.feature_set == "simple":
+        return tf.simple_features()
+    return tf.bc_features()
+
+
+def _add_time(st, key, t0):
+    st[key] = st.get(key, 0.0) + time.perf_counter() - t0
+
+
+def _training_slice(s, policy, watershed_level, pre_merge_size, cfg0, st):
+    """One training slice's host stages: watershed -> pre_merge -> RAG ->
+    serial merge order -> features.  Returns (seg, order, feats)."""
+    t = time.perf_counter()
+    seg = watershed(s["pb"], watershed_level)
+    if pre_merge_size:
+        seg = pre_merge(seg, s["pb"], (pre_merge_size,))
+    rag = build_rag(seg, contour_only=False)
+    order, sals = greedy_merge_native(rag, s["pb"], policy=policy)
+    _add_time(st, "t_segment", t)
+    t = time.perf_counter()
+    feats = _features_for(seg, s["pb"], s.get("intensity"), cfg0, order,
+                          sals)
+    _add_time(st, "t_features", t)
+    return seg, order, feats
+
+
+def _labels(seg, truth, order, rule, st):
+    t = time.perf_counter()
+    labels, _, _ = bc_labels(seg, truth, order, rule=rule)
+    _add_time(st, "t_labels", t)
+    return labels
+
+
+def training_samples(slices, policy="median", rule="f1",
+                     watershed_level=0.05, pre_merge_size=30, n_bins=16,
+                     stats: Optional[dict] = None):
+    """The (X [n, D], y [n]) that hmt_train trains on: per slice
+    watershed -> pre_merge -> serial merge order -> BC features (with the
+    saliency columns) + merge/split labels, pooled.  ``stats`` receives
+    t_segment (everything up to the merge order), t_features and t_labels
+    in seconds, summed over the slices."""
+    st = stats if stats is not None else {}
+    cfg0 = HmtModel(forest=None, n_bins=n_bins)
+    X, y = [], []
+    for s in slices:
+        seg, order, feats = _training_slice(s, policy, watershed_level,
+                                            pre_merge_size, cfg0, st)
+        X.append(feats)
+        y.append(_labels(seg, s["truth"], order, rule, st))
+    return np.concatenate(X), np.concatenate(y)
+
+
+def hmt_train(slices, policy="median", rule="f1", n_trees=100, seed=0,
+              watershed_level=0.05, pre_merge_size=30,
+              n_bins=16, classifier="rf",
+              ensemble_threshold=None, mlp_hidden=(16, 8),
+              device: DeviceLike = None,
+              dtype: Optional[torch.dtype] = None,
+              stats: Optional[dict] = None) -> HmtModel:
+    """Train the boundary classifier over (pb, intensity, truth) slices.
+
+    slices: sequence of dicts with keys pb, intensity, truth.
+    Pipeline per slice: watershed -> pre_merge -> merge_order_pb ->
+    bc_feat + bc_label (``training_samples``) -> pooled classifier
+    training on ``device`` (the CUDA card by default) in ``dtype``.
+    classifier: "mlp" (``mlp_hidden`` units, Adam); "rf" and "rf_ensemble"
+    (``n_trees``, ``ensemble_threshold``) raise NotImplementedError until
+    the port has a forest trainer.  ``stats`` receives the stage seconds
+    of training_samples and train_sshmt.
+    """
+    if classifier in ("rf", "rf_ensemble"):
+        raise NotImplementedError(NO_FOREST_TRAINER.format(classifier))
+    if classifier != "mlp":
+        raise ValueError(f"classifier {classifier!r} (rf|rf_ensemble|mlp)")
+    dev = resolve_device(device)
+    st = stats if stats is not None else {}
+    X, y = training_samples(slices, policy, rule, watershed_level,
+                            pre_merge_size, n_bins, st)
+    m = train_mlp_supervised(X, y, hidden=mlp_hidden, seed=seed,
+                             device=dev, dtype=dtype, stats=st)
+    return HmtModel(forest=None, n_bins=n_bins, policy=policy,
+                    kind="mlp", extra=m)
+
+
+def sshmt_samples(labeled_slices, unlabeled_slices, policy="median",
+                  rule="f1", watershed_level=0.05, pre_merge_size=30,
+                  n_bins=16, label_fraction=1.0, seed=0,
+                  stats: Optional[dict] = None) -> dict:
+    """What hmt_train_sshmt trains on: the "simple" features of every
+    slice's merges, min-max rescaled over all slices (``feats``, one array
+    per slice, with ``orders``), and the labeled merges kept with
+    probability ``label_fraction`` (``sup_X`` rescaled, ``sup_y``), and the
+    ``minmax`` table.  ``stats`` as in training_samples."""
+    st = stats if stats is not None else {}
+    cfg0 = HmtModel(forest=None, n_bins=n_bins, feature_set="simple")
+    sup_X, sup_y = [], []
+    uns_feats, uns_orders = [], []
+    rng = np.random.default_rng(seed)
+    for s in labeled_slices:
+        seg, order, feats = _training_slice(s, policy, watershed_level,
+                                            pre_merge_size, cfg0, st)
+        labels = _labels(seg, s["truth"], order, rule, st)
+        keep = rng.random(len(labels)) < label_fraction
+        sup_X.append(feats[keep])
+        sup_y.append(labels[keep])
+        uns_feats.append(feats)
+        uns_orders.append(order)
+    for s in unlabeled_slices:
+        _, order, feats = _training_slice(s, policy, watershed_level,
+                                          pre_merge_size, cfg0, st)
+        uns_feats.append(feats)
+        uns_orders.append(order)
+    minmax = feature_minmax(np.concatenate(uns_feats))
+    return {"feats": [rescale_features(f, minmax) for f in uns_feats],
+            "orders": uns_orders,
+            "sup_X": (rescale_features(np.concatenate(sup_X), minmax)
+                      if sup_X else None),
+            "sup_y": np.concatenate(sup_y) if sup_y else None,
+            "minmax": minmax}
+
+
+def hmt_train_sshmt(labeled_slices, unlabeled_slices, policy="median",
+                    rule="f1", watershed_level=0.05, pre_merge_size=30,
+                    n_bins=16, label_fraction=1.0, wr=1.0, wu=1.0, ws=1.0,
+                    n_sigma_update=5, inner_steps=150, lr=0.2,
+                    seed=0, device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None,
+                    stats: Optional[dict] = None) -> HmtModel:
+    """Semi-supervised SSHMT training pipeline (BASELINE config #3).
+
+    labeled_slices contribute (sparse) merge/split labels; unlabeled ones
+    contribute root-path consistency constraints only.  The classifier is
+    a Logsig over min-max rescaled selectFeatures "simple" features
+    (the reference's SSHMT setup, main_train_sshmt_logsig.cxx), trained on
+    ``device`` (the CUDA card by default) in ``dtype``.
+    ``label_fraction`` subsamples the labeled merges to emulate sparse
+    supervision.  ``stats`` receives the stage seconds of sshmt_samples
+    and train_sshmt.
+    """
+    dev = resolve_device(device)
+    st = stats if stats is not None else {}
+    samples = sshmt_samples(labeled_slices, unlabeled_slices, policy, rule,
+                            watershed_level, pre_merge_size, n_bins,
+                            label_fraction, seed, st)
+    out = train_sshmt(samples["feats"], samples["orders"], samples["sup_X"],
+                      samples["sup_y"], classifier="logsig", wr=wr, wu=wu,
+                      ws=ws, n_sigma_update=n_sigma_update,
+                      inner_steps=inner_steps, lr=lr, seed=seed,
+                      device=dev, dtype=dtype, stats=st)
+    return HmtModel(forest=None, n_bins=n_bins, policy=policy,
+                    kind="logsig", feature_set="simple",
+                    extra={"w": out["w"], "minmax": samples["minmax"],
+                           "history": out["history"]})
+
+
+ENGINES = ("device_bc", "device", "host")
 
 
 def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
@@ -117,32 +332,43 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
                 dtype: Optional[torch.dtype] = None,
                 stats: Optional[dict] = None):
     """Inference: watershed -> pre_merge -> merge order -> merge
-    probabilities from the forest -> tree resolution -> final label image.
+    probabilities from the classifier -> tree resolution (``mode``:
+    "greedy" or "ccm") -> final label image.
 
-    engine="device_bc": device feature assembly + forest scoring inside
-    the merge loop, the counterpart of the reference's merge_order_bc
+    engine="device_bc" (forest models on the full BC vector only): device
+    feature assembly + forest scoring inside the merge loop, the
+    counterpart of the reference's merge_order_bc
     (util/struct_merge_bc.hxx:10-58), which orders merges by classifier
     probability.  engine="device": the batched pb-policy merge order on
     the device (``model.policy``: mean, median or median_minsize) with
     exact merge-time saliencies, then host feature extraction over the
-    merge tree and one batched forest scoring; ``backend`` picks the
-    forest walk there ("np": host float64; "device": the device walk).
+    merge tree and one batched scoring.  engine="host": the same with the
+    exact serial C++ merge order.  ``backend`` picks a forest's walk
+    there ("np": host float64; "device": the device walk); MLP2 and Logsig
+    models run on the device in ``dtype``.
     ``device`` defaults to the CUDA card and raises without one; pass
     device="cpu" for the plain PyTorch path.  A ``stats`` dict receives
     the wall seconds of each stage (t_watershed, t_pre_merge, t_rag,
     t_merge_loop, t_tree_resolve, t_segmentation; t_build_state for
-    device_bc; t_exact_saliency, t_features, t_predict for device) and the
-    merge loop's counters.
+    device_bc; t_features, t_predict for device and host; t_exact_saliency
+    for device) and the merge loop's counters.
 
     Returns (segmentation, info dict with seg0, order, probs, n_picks)."""
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[engine])
-    if engine not in ("device_bc", "device"):
-        raise ValueError(engine)
-    if mode == "ccm":
-        raise NotImplementedError(_NOT_PORTED["ccm"])
-    if mode != "greedy":
-        raise ValueError(mode)
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} ({'|'.join(ENGINES)})")
+    if mode not in ("greedy", "ccm"):
+        raise ValueError(f"mode {mode!r} (greedy|ccm)")
+    if engine == "device_bc":
+        if model.kind != "rf":
+            raise ValueError(
+                "engine='device_bc' needs a forest model (kind='rf'); "
+                f"got kind={model.kind!r}")
+        if model.feature_set != "full":
+            raise ValueError(
+                "engine='device_bc' assembles the full BC feature vector "
+                "on device; model.feature_set="
+                f"{model.feature_set!r} is not supported -- use "
+                "engine='host' or retrain with feature_set='full'")
     if engine == "device" and model.policy not in (
             "mean", "median", "median_minsize"):
         raise ValueError(
@@ -171,17 +397,27 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
         order, probs = merge_order_bc_device(rag, cfg, scorer, stats=st,
                                              device=dev, dtype=dtype)
     else:
-        order, sals = greedy_merge_device(rag, pb, policy=model.policy,
-                                          stats=st, device=dev, dtype=dtype)
+        if engine == "device":
+            order, sals = greedy_merge_device(rag, pb, policy=model.policy,
+                                              stats=st, device=dev,
+                                              dtype=dtype)
+        else:
+            t = time.perf_counter()
+            order, sals = greedy_merge_native(rag, pb, policy=model.policy)
+            st["t_merge_loop"] = time.perf_counter() - t
         t = time.perf_counter()
         feats = _features_for(seg, pb, intensity, model, order, sals)
         st["t_features"] = time.perf_counter() - t
         t = time.perf_counter()
-        probs = model.predict_merge_prob(feats, backend=backend, device=dev)
+        probs = model.predict_merge_prob(feats, backend=backend, device=dev,
+                                         dtype=dtype)
         st["t_predict"] = time.perf_counter() - t
     t = time.perf_counter()
     tree = build_tree(order)
-    picks = resolve_tree_greedy(tree, node_potentials(tree, probs))
+    if mode == "greedy":
+        picks = resolve_tree_greedy(tree, node_potentials(tree, probs))
+    else:
+        picks = segment_ccm_picks(tree, probs)
     st["t_tree_resolve"] = time.perf_counter() - t
     t = time.perf_counter()
     out = final_segmentation(seg, tree, picks)

@@ -29,6 +29,8 @@ import pytest
 import torch
 
 import glia_tpu.pipeline as jp
+import glia_tpu_torch.graph.merge_device as tmd
+import glia_tpu_torch.native as tn
 import glia_tpu_torch.pipeline as tp
 from glia_tpu.data.synthetic import synthetic_em_slice
 from glia_tpu.features.config import FeatureConfig
@@ -42,6 +44,7 @@ from glia_tpu.infer.segment import final_segmentation
 from glia_tpu.metrics import eval_vi
 from glia_tpu.models.forest import train_forest
 from glia_tpu.native import greedy_merge_native
+from glia_tpu_torch.graph.rag import build_rag as t_build_rag
 from glia_tpu_torch.models.forest import ForestModel, ForestTables
 from glia_tpu_torch.ops.cuda import forest_votes_cuda, launches
 
@@ -101,14 +104,34 @@ def test_no_device_without_cuda_raises(case, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             tp.hmt_segment(s["pb"], s["intensity"], model, engine="device",
                            **kw)
+    for engine in ("device", "host"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tp.hmt_segment(s["pb"], s["intensity"], model, engine=engine,
+                           mode="ccm")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.hmt_train([s], classifier="mlp")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp.hmt_train_sshmt([s], [s])
 
 
-@pytest.mark.parametrize("kw", [{"engine": "host"}, {"mode": "ccm"},
-                                {"engine": "host", "mode": "ccm"}])
+@pytest.mark.parametrize("kw", [{"classifier": "rf"},
+                                {"classifier": "rf_ensemble"},
+                                {"merge_mode": "fused_ms"}])
 def test_unported_engines_raise(case, kw):
-    s, _, model = case
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp.hmt_segment(s["pb"], s["intensity"], model, device="cpu", **kw)
+    """What the port does not have yet raises NotImplementedError naming
+    its ROADMAP.md item: forest training (both of hmt_train's forest
+    classifiers, before any work) and the multi-phase merge engine."""
+    s, _, _ = case
+    if "merge_mode" in kw:
+        rag = t_build_rag(tp.watershed(s["pb"], 0.05), contour_only=False)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tmd.greedy_merge_device(rag, s["pb"], mode=kw["merge_mode"],
+                                    device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+        tp.hmt_train([s], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="forest trainer"):
+        tp.hmt_train(None, classifier=kw["classifier"])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(case):
@@ -234,8 +257,166 @@ def test_device_engine_checks_policy_and_model(case):
             f.n_classes, f.max_depth, f.classes)
     with pytest.raises(ValueError, match="kind"):
         tp.hmt_model_from_arrays(*args, kind="mlp")
+    with pytest.raises(ValueError, match="kind"):
+        tp.hmt_model_from_arrays(*args, kind="rf_ensemble")
     with pytest.raises(ValueError, match="feature_set"):
-        tp.hmt_model_from_arrays(*args, feature_set="simple")
+        tp.hmt_model_from_arrays(*args, feature_set="partial")
+    # a forest on the "simple" features runs on the host and device
+    # engines; device_bc assembles the full vector only, as in glia_tpu
+    simple = tp.hmt_model_from_arrays(*args, feature_set="simple")
+    with pytest.raises(ValueError, match="feature_set"):
+        tp.hmt_segment(s["pb"], s["intensity"], simple, device="cpu")
     m = tp.hmt_model_from_arrays(*args, n_bins=8, policy="mean")
     assert (m.n_bins, m.policy) == (8, "mean")
     np.testing.assert_array_equal(m.forest.threshold, f.threshold)
+
+
+# ---------------------------------------------------------------------------
+# engine="host", mode="ccm", training
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_greedy_merge_native_matches(policy):
+    s = synthetic_em_slice(shape=(96, 96), n_cells=20, seed=4)
+    seg = jp.pre_merge(jp.watershed(s["pb"], 0.05), s["pb"], (30,))
+    want = greedy_merge_native(build_rag(seg, contour_only=False), s["pb"],
+                               policy=policy)
+    got = tn.greedy_merge_native(t_build_rag(seg, contour_only=False),
+                                 s["pb"], policy=policy)
+    assert len(got[0]) > 20
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    with pytest.raises(ValueError, match="policy"):
+        tn.greedy_merge_native(t_build_rag(seg, contour_only=False),
+                               s["pb"], policy="max")
+
+
+@pytest.mark.parametrize("backend", ["np", "device"])
+@pytest.mark.parametrize("mode", ["greedy", "ccm"])
+def test_hmt_segment_host_forest_matches(device_case, mode, backend):
+    s, jmodel, model = device_case
+    want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jmodel,
+                                    engine="host", mode=mode,
+                                    backend="np" if backend == "np"
+                                    else "jax")
+    stats = {}
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
+                                  engine="host", mode=mode, backend=backend,
+                                  device="cpu", stats=stats)
+    np.testing.assert_array_equal(got["order"], want["order"])
+    np.testing.assert_array_equal(got["probs"], want["probs"])
+    assert got["n_picks"] == want["n_picks"]
+    np.testing.assert_array_equal(got_seg, want_seg)
+    assert {"t_merge_loop", "t_features", "t_predict",
+            "t_tree_resolve"} <= set(stats)
+
+
+def test_hmt_segment_device_bc_ccm_matches(case):
+    s, jmodel, model = case
+    want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jmodel,
+                                    engine="device_bc", mode="ccm")
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
+                                  engine="device_bc", mode="ccm",
+                                  device="cpu")
+    assert got["n_picks"] == want["n_picks"]
+    np.testing.assert_array_equal(got_seg, want_seg)
+
+
+TRAIN_SLICES = {"mlp": [((64, 64), 12, 21)],
+                "logsig": [((96, 96), 20, 11), ((96, 96), 20, 12)]}
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """hmt_train(classifier="mlp") on one 64x64 slice with mlp_hidden
+    (2, 2): a case whose Adam trajectory is stable under glia_tpu's
+    schedule (3 x 500 steps), so that the two sides' weights can agree
+    (test_torch_learn.py shows the (16, 8) default parting after ~300
+    steps); hmt_train_sshmt with glia_tpu's defaults on one labeled
+    (label_fraction 0.5) and one unlabeled 96x96 slice."""
+    sl = {k: [synthetic_em_slice(shape, n_cells=c, seed=seed)
+              for shape, c, seed in v] for k, v in TRAIN_SLICES.items()}
+    jm = jp.hmt_train(sl["mlp"], classifier="mlp", mlp_hidden=(2, 2))
+    st = {}
+    tm = tp.hmt_train(sl["mlp"], classifier="mlp", mlp_hidden=(2, 2),
+                      device="cpu", stats=st)
+    jl = jp.hmt_train_sshmt(sl["logsig"][:1], sl["logsig"][1:],
+                            label_fraction=0.5)
+    tl = tp.hmt_train_sshmt(sl["logsig"][:1], sl["logsig"][1:],
+                            label_fraction=0.5, device="cpu")
+    return {"mlp": (jm, tm), "logsig": (jl, tl), "mlp_stats": st}
+
+
+@pytest.mark.parametrize("kind", ["mlp", "logsig"])
+def test_trained_weights_match_glia_tpu(trained, kind):
+    jm, tm = trained[kind]
+    assert (tm.kind, tm.feature_set, tm.policy, tm.n_bins) == (
+        jm.kind, jm.feature_set, jm.policy, jm.n_bins)
+    w, ref = tm.extra["w"], jm.extra["w"]
+    assert np.max(np.abs(w - ref)) <= 1e-6 * np.max(np.abs(ref))
+    np.testing.assert_array_equal(tm.extra["minmax"], jm.extra["minmax"])
+    if kind == "mlp":
+        assert (tm.extra["n1"], tm.extra["n2"]) == (2, 2)
+        st = trained["mlp_stats"]
+        assert st["n_steps"] == 1500
+        assert {"t_segment", "t_features", "t_labels", "t_path_groups",
+                "t_optimizer"} <= set(st)
+    else:
+        hj, ht = jm.extra["history"], tm.extra["history"]
+        assert len(ht) == len(hj) == 5
+        for a, b in zip(ht, hj):
+            for k in ("energy", "sigma_u", "sigma_s"):
+                assert a[k] == pytest.approx(b[k], rel=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "ccm"])
+@pytest.mark.parametrize("engine", ["host", "device"])
+@pytest.mark.parametrize("kind", ["mlp", "logsig"])
+def test_hmt_segment_with_trained_models(trained, kind, engine, mode):
+    """Each side segments the 96x96 test slice with its own trained model:
+    probabilities within 1e-6, the same final segmentation (VI 0); the
+    device engine is held against glia_tpu's own (fused_ms), which builds
+    the same hierarchy in another row order."""
+    jm, tm = trained[kind]
+    s = synthetic_em_slice(shape=(96, 96), n_cells=20, seed=4)
+    want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jm,
+                                    engine=engine, mode=mode)
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], tm,
+                                  engine=engine, mode=mode, device="cpu")
+    assert len(got["order"]) == len(want["order"]) > 20
+    if engine == "host":
+        np.testing.assert_array_equal(got["order"], want["order"])
+        gap = np.max(np.abs(got["probs"] - want["probs"]))
+        assert gap <= 1e-6, f"merge probabilities differ by {gap}"
+    _, _, vi = eval_vi(got_seg, want_seg)
+    assert vi == 0.0, f"final segmentations differ: VI {vi}"
+    assert got["n_picks"] == want["n_picks"]
+
+
+@pytest.mark.parametrize("kind", ["mlp", "logsig"])
+def test_model_from_arrays_predicts_glia_tpu_probabilities(trained, kind):
+    """glia_tpu's trained model carried across as numpy arrays: the same
+    probabilities (rtol 1e-12) and the same segmentation on the host
+    engine.  The MLP is glia_tpu's (16, 8) default training."""
+    s = synthetic_em_slice(shape=(96, 96), n_cells=20, seed=4)
+    if kind == "mlp":
+        jm = jp.hmt_train([synthetic_em_slice((96, 96), n_cells=20,
+                                              seed=11)], classifier="mlp")
+        m = jm.extra
+        tm = tp.hmt_model_from_arrays(kind="mlp", w=m["w"],
+                                      minmax=m["minmax"], n1=m["n1"],
+                                      n2=m["n2"], policy=jm.policy)
+    else:
+        jm = trained["logsig"][0]
+        tm = tp.hmt_model_from_arrays(kind="logsig", w=jm.extra["w"],
+                                      minmax=jm.extra["minmax"],
+                                      feature_set="simple")
+    X = np.random.default_rng(3).random((50, len(jm.extra["minmax"][0])))
+    np.testing.assert_allclose(tm.predict_merge_prob(X, device="cpu"),
+                               jm.predict_merge_prob(X), rtol=1e-12)
+    want_seg, _ = jp.hmt_segment(s["pb"], s["intensity"], jm, engine="host")
+    got_seg, _ = tp.hmt_segment(s["pb"], s["intensity"], tm, engine="host",
+                                device="cpu")
+    np.testing.assert_array_equal(got_seg, want_seg)
+    with pytest.raises(ValueError, match="kind"):
+        tp.hmt_model_from_arrays(kind=kind, minmax=jm.extra["minmax"])
