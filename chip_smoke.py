@@ -9,7 +9,8 @@ default, the SNEMI3D section size): ``pipeline.hmt_segment`` with
 median) with seeded random forests in the reference's shape (255 trees,
 classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
-and on ``engine="host"``.  Phases, one JSON line each:
+and on ``engine="host"``; then forests trained by the port's CART trainer
+on every engine.  Phases, one JSON line each:
 
   env     torch / CUDA versions, the card's name and power limit
   build   the CUDA kernels (nvcc, sm_90a) and the C++ host runtime (g++),
@@ -49,7 +50,21 @@ and on ``engine="host"``.  Phases, one JSON line each:
           default dtype (printed); the MLP2's probabilities resolved with
           mode="ccm" (more than one pick, at the optimum's energy); stage
           seconds, steps/s, sigmas, VI and Rand of each segmentation
-          beside the watershed baseline's; then the ``kernels`` line
+          beside the watershed baseline's
+  slice_forest
+          forests of 100 trees trained by the port (train_forest) on the
+          MLP sections' samples: trained again and on one thread
+          (identical arrays, or the script fails), its held-out error on
+          the SSHMT labeled section (below the majority class's), then
+          hmt_segment(engine="host" and "device", backend="device"); a
+          forest on the same merges' 143-wide features, then
+          hmt_segment(engine="device_bc") twice (identical rows and
+          probabilities, and kernel B1 equal to the plain walk on every
+          batch of the loop), and the serial C++ BC engine with it beside
+          device_bc on the section's BC_SIDE^2 corner;
+          hmt_train(classifier="rf_ensemble"), then engine="host" with
+          it; kernel B1 against the plain walk at each trained forest's
+          batch (plan, ms, bound); then the ``kernels`` line
 
 Any failed phase raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
@@ -151,16 +166,19 @@ def phase_env():
 
 
 def phase_build():
-    from glia_tpu_torch.native import get_lib, native_build
+    from glia_tpu_torch.native import (forest_build, get_forest_lib,
+                                       get_lib, native_build)
     from glia_tpu_torch.ops import cuda as kcuda
 
     t = time.perf_counter()
-    builds = {"glia_native": native_build().start()}
+    builds = {"glia_native": native_build().start(),
+              "glia_forest": forest_build().start()}
     builds.update({name: kcuda.kernel_build(name).start()
                    for name in kcuda.SOURCES})
     for b in builds.values():
         b.wait()
     get_lib()
+    get_forest_lib()
     seconds = time.perf_counter() - t
     ptxas = {name: [ln.strip() for ln in b.log.splitlines()
                     if "registers" in ln or "spill" in ln
@@ -377,6 +395,7 @@ def phase_kernel(feats, model, seed, path="device_bc"):
             "launches": None, "mismatches": mismatches,
             "max_abs_err": max_err, "ms": ms,
             "global_memory_ms": global_ms, "plain_ms": plain_ms,
+            "plan": plan, "mean_steps": gathers / (B * T),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
@@ -1084,6 +1103,41 @@ def ccm_check(model, feats, order, seg0, truth, dev):
     return out
 
 
+def segment_section(name, model, data, seg, rag, dev, paths, **kw):
+    """hmt_segment on the data section with ``model`` and ``kw``: launch
+    counts into ``paths[name]``; the over-segmentation must be the data
+    phase's, the order a valid merge forest and the metrics finite.
+    Returns (segmentation, info, the forest_votes_cuda calls made, the
+    fields of its JSON line)."""
+    import glia_tpu_torch.pipeline as tp
+    from glia_tpu_torch.ops import cuda as kcuda
+
+    pb, intensity, truth = data["pb"], data["intensity"], data["truth"]
+    stats = {}
+    kcuda.reset_launches()
+    t = time.perf_counter()
+    (out, info), calls = capture_calls(
+        kcuda, "forest_votes_cuda", lambda: tp.hmt_segment(
+            pb, intensity, model, device=dev, stats=stats, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    paths[name] = dict(kcuda.launches)
+    if not np.array_equal(info["seg0"], seg):
+        raise AssertionError(f"{name}: over-segmentation differs from the "
+                             f"data phase's")
+    check_order(info["order"], info["probs"], rag.n_regions,
+                int(rag.keys.max()))
+    ev = tp.evaluate(out, truth)
+    if out.shape != pb.shape or not all(np.isfinite(x) for x in ev.values()):
+        raise AssertionError(f"{name}: segmentation {out.shape}, metrics "
+                             f"{ev}")
+    return out, info, calls, {
+        "wall_s": wall, "launches": paths[name],
+        "stages_s": {k: x for k, x in stats.items() if k.startswith("t_")},
+        "merges": int(len(info["order"])), "n_picks": info["n_picks"],
+        "eval": ev}
+
+
 def phase_slice_train(data, seg, rag, forest, dev, side, seed):
     """Training at full size, then segmenting with the trained models:
 
@@ -1104,11 +1158,9 @@ def phase_slice_train(data, seg, rag, forest, dev, side, seed):
     from glia_tpu_torch.learn.sshmt import train_sshmt
     from glia_tpu_torch.models.train_ensemble import train_mlp_supervised
     from glia_tpu_torch.native import greedy_merge_native
-    from glia_tpu_torch.ops import cuda as kcuda
 
     t_phase = time.perf_counter()
     pb, intensity, truth = data["pb"], data["intensity"], data["truth"]
-    R, max_key = rag.n_regions, int(rag.keys.max())
     baseline = tp.evaluate(seg, truth)
     t = time.perf_counter()
     sections = [synthetic_em_slice((side, side), n_cells=(side // 17) ** 2,
@@ -1117,37 +1169,22 @@ def phase_slice_train(data, seg, rag, forest, dev, side, seed):
     paths = {}
 
     def segment(name, model, **kw):
-        stats = {}
-        kcuda.reset_launches()
-        t = time.perf_counter()
-        out, info = tp.hmt_segment(pb, intensity, model, device=dev,
-                                   stats=stats, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        paths[name] = dict(kcuda.launches)
-        if not np.array_equal(info["seg0"], seg):
-            raise AssertionError(f"{name}: over-segmentation differs from "
-                                 f"the data phase's")
-        check_order(info["order"], info["probs"], R, max_key)
-        ev = tp.evaluate(out, truth)
-        if out.shape != pb.shape or not all(
-                np.isfinite(x) for x in ev.values()):
-            raise AssertionError(f"{name}: segmentation {out.shape}, "
-                                 f"metrics {ev}")
-        return out, info, {"wall_s": wall, "launches": paths[name],
-                           "stages_s": {k: x for k, x in stats.items()
-                                        if k.startswith("t_")},
-                           "merges": int(len(info["order"])),
-                           "n_picks": info["n_picks"], "eval": ev}
+        return segment_section(name, model, data, seg, rag, dev, paths, **kw)
 
     # MLP2, supervised, on two labeled sections; the samples hmt_train
-    # computed are kept to train again on them
+    # computed are kept to train again on them, and with the sections'
+    # merges (the arguments of _features_for) for slice_forest
     st = {}
-    mlp, calls = capture_calls(tp, "training_samples", lambda: tp.hmt_train(
-        sections[:2], classifier="mlp", mlp_hidden=(16, 8), device=dev,
-        dtype=torch.float64, stats=st))
+    (mlp, calls), merges = capture_calls(
+        tp, "_features_for", lambda: capture_calls(
+            tp, "training_samples", lambda: tp.hmt_train(
+                sections[:2], classifier="mlp", mlp_hidden=(16, 8),
+                device=dev, dtype=torch.float64, stats=st)))
     samples = calls[0][1]
-    out, info, seg_line = segment("train_mlp_device", mlp, engine="device")
+    forest_inputs = {"sections": sections, "samples": samples,
+                     "train_merges": [c[0] for c in merges]}
+    out, info, _, seg_line = segment("train_mlp_device", mlp,
+                                     engine="device")
     if paths["train_mlp_device"]["segment_sum"] == 0:
         raise AssertionError("segment_sum never launched on the device "
                              "path with the trained MLP")
@@ -1182,11 +1219,13 @@ def phase_slice_train(data, seg, rag, forest, dev, side, seed):
 
     # SSHMT Logsig: one section labeled at 0.5, one unlabeled
     st = {}
-    logsig, calls = capture_calls(
-        tp, "sshmt_samples", lambda: tp.hmt_train_sshmt(
-            sections[2:3], sections[3:], label_fraction=0.5, device=dev,
-            dtype=torch.float64, stats=st))
+    (logsig, calls), merges = capture_calls(
+        tp, "_features_for", lambda: capture_calls(
+            tp, "sshmt_samples", lambda: tp.hmt_train_sshmt(
+                sections[2:3], sections[3:], label_fraction=0.5,
+                device=dev, dtype=torch.float64, stats=st)))
     samples = calls[0][1]
+    forest_inputs["held_out_merges"] = merges[0][0]
 
     def train_logsig(**k):
         w = train_sshmt(samples["feats"], samples["orders"],
@@ -1195,8 +1234,8 @@ def phase_slice_train(data, seg, rag, forest, dev, side, seed):
                         inner_steps=150, lr=0.2, **k)["w"]
         return replace(logsig, extra={**logsig.extra, "w": w})
 
-    out, info, seg_line = segment("sshmt_host_ccm", logsig, engine="host",
-                                  mode="ccm")
+    out, info, _, seg_line = segment("sshmt_host_ccm", logsig,
+                                     engine="host", mode="ccm")
     order, sals = greedy_merge_native(rag, pb, policy=logsig.policy)
     feats = tp._features_for(seg, pb, intensity, logsig, order, sals)
     runs, failures = retrain_checks(train_logsig, logsig, feats, order, seg,
@@ -1218,15 +1257,258 @@ def phase_slice_train(data, seg, rag, forest, dev, side, seed):
 
     # the seeded forest on the serial merge order: kernel B1 on the host path
     hmt = tp.HmtModel(forest=forest, n_bins=16)
-    (out, info, seg_line), calls = capture_calls(
-        kcuda, "forest_votes_cuda",
-        lambda: segment("host_forest", hmt, engine="host", backend="device"))
+    _, _, calls, seg_line = segment("host_forest", hmt, engine="host",
+                                    backend="device")
     if paths["host_forest"]["forest_votes"] != 1 or len(calls) != 1:
         raise AssertionError("forest_votes should launch once on the host "
                              "path")
     emit({"phase": "slice_train", "path": "host_forest", "segment": seg_line,
           "data_s": data_s, "phase_s": time.perf_counter() - t_phase})
     b1 = phase_kernel(calls[0][0][0], forest, seed, path="host")
+    return paths, b1, forest_inputs
+
+
+# trees of the trained forests (hmt_train's default) and the seed
+FOREST_TREES = 100
+# wall seconds slice_forest should stay under; where training the first
+# forest alone takes longer, the device_bc forest gets fewer trees
+FOREST_PHASE_S = 90.0
+# side of the data section's top-left corner that the serial C++ BC engine
+# runs on: on the whole 1024^2 section it took 795.2 s (NVIDIA H100 80GB
+# HBM3 machine, 700 W), far past the script's time limit
+BC_SIDE = 512
+
+
+def forest_shape(model):
+    """Real nodes in all, in the largest tree, depth."""
+    _, inner, leaves = node_shape(model)
+    per_tree = (model.feature != -1).sum(axis=1)
+    return {"trees": model.n_trees, "nodes": inner + leaves,
+            "largest_tree": int(per_tree.max()),
+            "mean_tree": float(per_tree.mean()), "max_depth": model.max_depth}
+
+
+def same_forest(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in
+               ("feature", "threshold", "left", "right", "leaf_class")) and (
+        a.max_depth == b.max_depth)
+
+
+def phase_slice_forest(data, seg, dev, inputs, seed):
+    """Forests trained by the port (models.forest.train_forest, the C++
+    CART trainer) on slice_train's samples, then segmenting with them:
+
+    - a forest of FOREST_TREES trees on the 148-wide samples of the two MLP
+      sections (hmt_train(classifier="rf")'s training): trained three
+      times (again, and on one thread; identical arrays or the script
+      fails), its error on the held-out section's merges (below the
+      majority class's or the script fails), hmt_segment(engine="host")
+      and (engine="device") with backend="device" (kernel B1 on the
+      trained trees, held against the plain walk);
+    - a forest on the same merges' 143-wide features (no saliencies), then
+      hmt_segment(engine="device_bc") with it, twice (identical rows and
+      probabilities, and 0 vote fractions of B1 differing from the plain
+      walk on every batch of the second loop, or the script fails), and
+      the serial C++ BC engine (native.greedy_merge_bc_native) with it
+      and device_bc again on the section's top-left BC_SIDE^2 corner;
+    - hmt_train(classifier="rf_ensemble") on the two sections, then
+      hmt_segment(engine="host", backend="device") with it.
+
+    Returns (launch counts per path, kernel B1's checks)."""
+    import os
+
+    import glia_tpu_torch.pipeline as tp
+    from glia_tpu_torch.features.config import FeatureConfig
+    from glia_tpu_torch.features.hierarchical import TreeFeatures
+    from glia_tpu_torch.features.labels import bc_labels
+    from glia_tpu_torch.graph.merge_bc_device import merge_order_bc_device
+    from glia_tpu_torch.graph.rag import build_rag
+    from glia_tpu_torch.graph.tree import build_tree, node_potentials
+    from glia_tpu_torch.infer.greedy import resolve_tree_greedy
+    from glia_tpu_torch.infer.segment import final_segmentation
+    from glia_tpu_torch.metrics import eval_vi
+    from glia_tpu_torch.models.ensemble import distribute
+    from glia_tpu_torch.models.forest import (ForestTables,
+                                              forest_votes_torch,
+                                              make_label_scorer,
+                                              pack_nodes,
+                                              predict_label_fraction,
+                                              train_forest)
+    from glia_tpu_torch.native import greedy_merge_bc_native
+
+    t_phase = time.perf_counter()
+    pb, intensity = data["pb"], data["intensity"]
+    rag = build_rag(seg, contour_only=False)
+    X, y = inputs["samples"]
+    cores = os.cpu_count() or 1
+    paths, b1, failures = {}, [], []
+
+    def train(X, y, n_trees=FOREST_TREES, n_jobs=-1):
+        t = time.perf_counter()
+        m = train_forest(X, y, n_trees=n_trees, seed=0, n_jobs=n_jobs)
+        return m, time.perf_counter() - t
+
+    def segment(name, model, **kw):
+        out = segment_section(name, model, data, seg, rag, dev, paths, **kw)
+        if paths[name]["forest_votes"] == 0:
+            raise AssertionError(f"{name}: forest_votes never launched")
+        return out
+
+    # the forest of hmt_train(classifier="rf") on the two MLP sections
+    forest, train_s = train(X, y)
+    again, again_s = train(X, y)
+    single, single_s = train(X, y, n_jobs=1)
+    if not same_forest(forest, again):
+        failures.append("two trainings with one seed gave different forests")
+    if not same_forest(forest, single):
+        failures.append(f"n_jobs=1 and n_jobs={cores} gave different forests")
+    seg_h, pb_h, int_h, _, order_h, sals_h = inputs["held_out_merges"]
+    X_h = tp._features_for(seg_h, pb_h, int_h, tp.HmtModel(forest=None),
+                           order_h, sals_h)
+    y_h = bc_labels(seg_h, inputs["sections"][2]["truth"], order_h,
+                    rule="f1")[0]
+    p_h = predict_label_fraction(forest, X_h, label=-1, backend="device",
+                                 device=dev)
+    held_out = {"merges": int(len(y_h)),
+                "error": float(np.mean((p_h > 0.5) != (y_h == -1))),
+                "majority_error": float(min(np.mean(y_h == -1),
+                                            np.mean(y_h == 1)))}
+    if not held_out["error"] < held_out["majority_error"]:
+        failures.append(f"held-out error not below the majority class's: "
+                        f"{held_out}")
+    hmt = tp.HmtModel(forest=forest, n_bins=16)
+    lines = {}
+    for engine in ("host", "device"):
+        name = f"forest_{engine}"
+        _, _, calls, lines[engine] = segment(name, hmt, engine=engine,
+                                             backend="device")
+        if paths[name]["forest_votes"] != 1 or len(calls) != 1:
+            raise AssertionError(f"{name}: forest_votes should launch once")
+        b1.append(phase_kernel(calls[0][0][0], forest, seed, path=name))
+    emit({"phase": "slice_forest", "forest": "rf", "D": int(X.shape[1]),
+          "samples": int(len(y)), "merge_labels": int((y < 0).sum()),
+          "cores": cores, "train_s": train_s, "train_again_s": again_s,
+          "train_one_thread_s": single_s, "shape": forest_shape(forest),
+          "mean_steps": {e: r["mean_steps"] for e, r in
+                         zip(("host", "device"), b1)},
+          "held_out": held_out, "segment": lines})
+
+    # the device_bc forest: the same merges' 143-wide features
+    t = time.perf_counter()
+    X_bc = np.concatenate([
+        TreeFeatures(build_rag(s_, contour_only=False), o_,
+                     FeatureConfig.standard(p_, i_, n_bins=16),
+                     saliencies=None).bc_features()
+        for s_, p_, i_, _, o_, _ in inputs["train_merges"]])
+    features_s = time.perf_counter() - t
+    # fewer trees only where one training of FOREST_TREES trees alone
+    # overran the phase's budget
+    bc_trees = (FOREST_TREES if train_s < FOREST_PHASE_S else
+                max(10, int(FOREST_TREES * FOREST_PHASE_S / train_s / 4)))
+    bc_forest, bc_train_s = train(X_bc, y, n_trees=bc_trees)
+    bc_hmt = tp.HmtModel(forest=bc_forest, n_bins=16)
+    _, info_bc, _, line_bc = segment("forest_device_bc", bc_hmt)
+
+    # the loop again: the same rows and probabilities, every batch of B1
+    # held against the plain walk (a comparison outside the counted run)
+    cfg = FeatureConfig.standard(pb, intensity, n_bins=16)
+    scorer = make_label_scorer(bc_forest, label=-1, device=dev)
+    tables = ForestTables.from_model(bc_forest, dev)
+    li = int(np.nonzero(bc_forest.classes == -1)[0][0])
+    kept, batch_check = [], {"batches": 0, "mismatches": 0}
+
+    def checked(Xb):
+        out = scorer(Xb)
+        want = forest_votes_torch(Xb, tables)[:, li]
+        batch_check["batches"] += 1
+        batch_check["mismatches"] += int((out != want).sum())
+        # the 12th superstep's batch is timed, or the last where the loop
+        # is shorter
+        if batch_check["batches"] <= 12:
+            kept[:] = [Xb.to(torch.float32).contiguous().clone()]
+        return out
+
+    order2, probs2 = merge_order_bc_device(rag, cfg, checked, device=dev)
+    torch.cuda.synchronize()
+    rerun = agreement(info_bc["order"], info_bc["probs"], order2, probs2)
+    if not rerun["identical"]:
+        failures.append(f"two device_bc runs with the trained forest "
+                        f"differ: {rerun}")
+    if batch_check["mismatches"]:
+        failures.append(f"B1 on the device_bc loop's batches: "
+                        f"{batch_check['mismatches']} vote fractions differ "
+                        f"from the plain walk")
+    if paths["forest_device_bc"]["forest_votes"] != batch_check["batches"]:
+        failures.append("forest_votes should launch once per superstep of "
+                        "the device_bc loop")
+    b1.append(phase_kernel(kept[0], bc_forest, seed, path="forest_device_bc"))
+
+    # the serial C++ BC engine with the same forest, and device_bc beside
+    # it, on the data section's top-left BC_SIDE^2 corner: each of its
+    # merges sums the merged region's boundary over all of its neighbours
+    # again, in the reference's order, which grows faster than the number
+    # of regions
+    crop = {k: np.ascontiguousarray(data[k][:BC_SIDE, :BC_SIDE])
+            for k in ("pb", "intensity", "truth")}
+    seg_c = tp.pre_merge(tp.watershed(crop["pb"], 0.05), crop["pb"], (30,))
+    rag_c = build_rag(seg_c, contour_only=False)
+    cfg_c = FeatureConfig.standard(crop["pb"], crop["intensity"], n_bins=16)
+    t = time.perf_counter()
+    order_n, probs_n = greedy_merge_bc_native(rag_c, cfg_c, bc_forest)
+    native_s = time.perf_counter() - t
+    check_order(order_n, probs_n, rag_c.n_regions, int(rag_c.keys.max()))
+    tree = build_tree(order_n)
+    seg_n = final_segmentation(
+        seg_c, tree,
+        resolve_tree_greedy(tree, node_potentials(tree, probs_n)))
+    seg_d, info_d = tp.hmt_segment(crop["pb"], crop["intensity"], bc_hmt,
+                                   device=dev)
+    emit({"phase": "slice_forest", "forest": "rf_bc", "D": int(
+              X_bc.shape[1]), "trees": bc_trees,
+          "trees_cut": bc_trees < FOREST_TREES, "features_s": features_s,
+          "train_s": bc_train_s, "shape": forest_shape(bc_forest),
+          "segment": line_bc, "rerun": rerun, "b1_loop_check": batch_check,
+          "native_bc": {"side": BC_SIDE, "regions": rag_c.n_regions,
+                        "merges": int(len(order_n)), "wall_s": native_s,
+                        "eval": tp.evaluate(seg_n, crop["truth"]),
+                        "device_bc_merges": int(len(info_d["order"])),
+                        "device_bc_eval": tp.evaluate(seg_d, crop["truth"]),
+                        "vi_to_device_bc": eval_vi(seg_n, seg_d)[2]}})
+
+    # the ensemble, through hmt_train
+    st = {}
+    ens_model, calls = capture_calls(
+        tp, "training_samples", lambda: tp.hmt_train(
+            inputs["sections"][:2], classifier="rf_ensemble", stats=st))
+    if not (np.array_equal(calls[0][1][0], X)
+            and np.array_equal(calls[0][1][1], y)):
+        raise AssertionError("hmt_train's samples differ from slice_train's")
+    ens = ens_model.extra["ensemble"]
+    groups = np.bincount(distribute(X, ens.dim0, ens.dim1, ens.threshold),
+                         minlength=3)
+    _, _, calls, line_ens = segment("ensemble_host", ens_model,
+                                    engine="host", backend="device")
+    if paths["ensemble_host"]["forest_votes"] != len(calls):
+        raise AssertionError("ensemble: launch counts")
+    # every launch against the plain walk of the member it served, at the
+    # rows routed to that member (members without rows launch nothing)
+    packed = [pack_nodes(f)[0] for f in ens.forests]
+    for (args, _) in calls:
+        served = [k for k, p in enumerate(packed)
+                  if np.array_equal(args[1].packed.cpu().numpy(), p)]
+        if len(served) != 1:
+            raise AssertionError(f"ensemble: a B1 launch matches members "
+                                 f"{served}")
+        k = served[0]
+        b1.append(phase_kernel(args[0], ens.forests[k], seed,
+                               path=f"ensemble_member_{k}"))
+    emit({"phase": "slice_forest", "forest": "rf_ensemble",
+          "train_s": st["t_forest"], "threshold": ens.threshold,
+          "groups": groups.tolist(),
+          "shapes": [forest_shape(f) for f in ens.forests],
+          "segment": line_ens, "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_forest: {failures}")
     return paths, b1
 
 
@@ -1255,17 +1537,21 @@ def main(argv=None):
     device_paths, b1_device, forest = phase_slice_device(
         data, seg, rag, dev, args.seed, args.trees, args.depth)
     paths.update(device_paths)
-    train_paths, b1_host = phase_slice_train(data, seg, rag, forest, dev,
-                                             args.side, args.seed)
+    train_paths, b1_host, forest_inputs = phase_slice_train(
+        data, seg, rag, forest, dev, args.side, args.seed)
     paths.update(train_paths)
+    forest_paths, b1_trained = phase_slice_forest(
+        data, seg, dev, forest_inputs, args.seed)
+    paths.update(forest_paths)
     # one line per kernel: B1's headline numbers are the device_bc batch's,
     # with the engine="device" and engine="host" batches listed beside them
     sub = ("path", "shape", "mismatches", "max_abs_err", "ms",
-           "global_memory_ms", "plain_ms", "bound_ms", "bound_by")
-    b1["shapes"] = [{k: r[k] for k in sub} for r in (b1, b1_device, b1_host)]
-    b1["mismatches"] += b1_device["mismatches"] + b1_host["mismatches"]
-    b1["max_abs_err"] = max(b1["max_abs_err"], b1_device["max_abs_err"],
-                            b1_host["max_abs_err"])
+           "global_memory_ms", "plain_ms", "bound_ms", "bound_by", "plan",
+           "mean_steps")
+    others = [b1_device, b1_host, *b1_trained]
+    b1["shapes"] = [{k: r[k] for k in sub} for r in (b1, *others)]
+    b1["mismatches"] += sum(r["mismatches"] for r in others)
+    b1["max_abs_err"] = max(r["max_abs_err"] for r in (b1, *others))
     kernels = [b1, b2]
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}

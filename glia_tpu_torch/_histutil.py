@@ -26,3 +26,9 @@ def hist_bin_index(values, n_bins, hist_range):
     idx = np.where(v >= hi, n_bins - 1, idx)
     return idx
 
+
+
+def hist_counts(values, n_bins, hist_range):
+    idx = hist_bin_index(values, n_bins, hist_range)
+    keep = idx >= 0
+    return np.bincount(idx[keep], minlength=n_bins).astype(np.float64)

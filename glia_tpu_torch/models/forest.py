@@ -6,13 +6,16 @@ class; a sample descends left iff ``x[bestvar] <= split``
 (code/ml/rf/rf.hxx:362-372, classForest).  Forests reach the port as
 node arrays: ``ForestModel.load`` reads the ``.npz`` that
 glia_tpu.models.forest.ForestModel.save writes, and ``from_arrays`` takes
-the arrays directly.  Both walks here compare in float32, as the JAX walk
+the arrays directly; ``train_forest`` grows one with the port's own CART
+trainer (``native/src/glia_forest.cc``), as glia_tpu's grows one with
+sklearn.  Both walks here compare in float32, as the JAX walk
 and the TPU kernel do: features are cast to float32 first, since float64
 features against float32 thresholds would flip ties.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..native import forest_train_native
 
 
 @dataclass
@@ -315,3 +319,97 @@ def predict_label_fraction(model: ForestModel, X, label=1, backend="np",
     tables = ForestTables.from_model(model, dev)
     Xd = torch.as_tensor(np.asarray(X), device=dev).to(torch.float32)
     return forest_votes(Xd, tables)[:, li].cpu().numpy()
+
+
+def bootstrap_draws(y, n_trees, sample_ratio=0.7, balance_classes=True,
+                    seed=0):
+    """Each tree's bootstrap counts and feature-stream seed, drawn as
+    sklearn's RandomForestClassifier(bootstrap=True, max_samples=
+    sample_ratio, class_weight="balanced" or None, random_state=seed)
+    draws them.
+
+    Tree seeds come one per tree from RandomState(seed).randint(2**31 - 1).
+    Tree t draws ``n_bs`` row indices with replacement from
+    RandomState(seed_t): uniformly, n_bs = max(int(sample_ratio * n), 1),
+    or, balanced, with probabilities proportional to the class weights
+    ``w = n / (k * bincount(y))`` of each row's class, n_bs =
+    max(int(sample_ratio * w.sum()), 1).  The counts of the draw are the
+    tree's sample weights.  Its feature stream starts from
+    RandomState(seed_t).randint(0, 2**31 - 1).  Returns (classes,
+    class index of each row, counts int32 [n_trees, n], seeds uint32
+    [n_trees])."""
+    y = np.asarray(y).astype(np.int64)
+    n = len(y)
+    classes, y_idx = np.unique(y, return_inverse=True)
+    if balance_classes:
+        class_counts = np.bincount(y_idx, weights=np.ones(n))
+        recip = np.sum(class_counts) / (len(classes) * class_counts)
+        w = recip[y_idx]
+        p = w / np.sum(w)
+        n_bs = max(int(sample_ratio * w.sum()), 1)
+    else:
+        n_bs = max(int(sample_ratio * n), 1)
+    top = np.iinfo(np.int32).max
+    rs = np.random.RandomState(seed)
+    tree_seeds = [rs.randint(top) for _ in range(n_trees)]
+    counts = np.empty((n_trees, n), np.int32)
+    seeds = np.empty(n_trees, np.uint32)
+    for t, s in enumerate(tree_seeds):
+        draw = np.random.RandomState(s)
+        idx = (draw.choice(n, n_bs, replace=True, p=p) if balance_classes
+               else draw.randint(0, n, n_bs))
+        counts[t] = np.bincount(idx, minlength=n)
+        seeds[t] = np.random.RandomState(s).randint(0, top)
+    return classes, y_idx, counts, seeds
+
+
+def train_forest(X, y, n_trees=255, mtry=None, sample_ratio=0.7,
+                 balance_classes=True, seed=0, max_depth=None,
+                 n_jobs=1) -> ForestModel:
+    """Host CART training with reference defaults
+    (main_train_rf.cxx:18-70: nTree=255, mtry=sqrt(D), sampsize=0.7,
+    class-balancing weights), without sklearn.
+
+    The forest glia_tpu's train_forest gets from sklearn's
+    RandomForestClassifier with these arguments: the same per-tree
+    bootstrap draws (``bootstrap_draws``), trees grown to purity on them by
+    ``native/src/glia_forest.cc`` (Gini, best split over ``mtry`` drawn
+    features, default ``int(sqrt(D))``), packed into ForestModel's [T, N]
+    arrays as ForestModel.from_sklearn packs sklearn's trees (padded to the
+    largest tree, ``max_depth`` the deepest tree's depth).  ``n_jobs``
+    trees grow at once on threads (-1 or None: every core); the forest does
+    not depend on it.  Features must be finite."""
+    X = np.asarray(X, dtype=np.float64)
+    if X.ndim != 2 or len(X) != len(y) or len(X) == 0:
+        raise ValueError(f"X must be [n, D] with n = len(y) > 0; got "
+                         f"{X.shape} and {len(y)} labels")
+    with np.errstate(over="ignore"):
+        X32 = np.ascontiguousarray(X, dtype=np.float32)
+    if not np.isfinite(X32).all():
+        raise ValueError("forest training features must be finite in "
+                         "float32")
+    D = X.shape[1]
+    mtry = max(1, int(np.sqrt(D))) if mtry is None else int(mtry)
+    if mtry < 1:
+        raise ValueError(f"mtry {mtry} < 1")
+    if max_depth is not None and max_depth < 1:
+        raise ValueError(f"max_depth {max_depth} < 1")
+    if n_jobs is None or n_jobs < 0:
+        n_jobs = os.cpu_count() or 1
+    classes, y_idx, counts, seeds = bootstrap_draws(
+        y, n_trees, sample_ratio, balance_classes, seed)
+    trees, depth = forest_train_native(X32, y_idx, len(classes), counts,
+                                       seeds, mtry, max_depth, n_jobs)
+    N = max(len(t[0]) for t in trees)
+    feature = np.full((n_trees, N), -1, np.int32)
+    threshold = np.zeros((n_trees, N), np.float32)
+    left, right, leaf_class = (np.zeros((n_trees, N), np.int32)
+                               for _ in range(3))
+    for i, t in enumerate(trees):
+        c = len(t[0])
+        for a, v in zip((feature, threshold, left, right, leaf_class), t):
+            a[i, :c] = v
+    return ForestModel(feature=feature, threshold=threshold, left=left,
+                       right=right, leaf_class=leaf_class,
+                       n_classes=len(classes), max_depth=int(depth.max()),
+                       classes=classes)

@@ -1,10 +1,13 @@
 """ctypes bindings for the C++ host runtime: watershed, the serial
-greedy merge and pre-merge loops, connected components and the
-exact-saliency replays.
+greedy merge and pre-merge loops, connected components, the
+exact-saliency replays, the serial classifier-in-the-loop merge and the
+forest trainer.
 
-``src/glia_native.cc`` is this package's own copy of glia_tpu's C++
-runtime.  It is compiled with g++ at first use into ``.build/glia_tpu_torch/``
-(see ``_build``).
+``src/glia_native.cc`` and ``src/glia_bc.cc`` are this package's own copies
+of glia_tpu's C++ runtime, built together as glia_tpu builds them;
+``src/glia_forest.cc`` (CART training, the port's own) is built apart,
+without fused multiply-adds.  Each library is compiled with g++ at first
+use into ``.build/glia_tpu_torch/`` (see ``_build``).
 """
 
 from __future__ import annotations
@@ -17,15 +20,26 @@ import numpy as np
 
 from .._build import SharedLibBuild
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
-                    "glia_native.cc")
+_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+_SRC = [os.path.join(_SRC_DIR, "glia_native.cc"),
+        os.path.join(_SRC_DIR, "glia_bc.cc")]
 _CMD = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
+_FOREST_SRC = [os.path.join(_SRC_DIR, "glia_forest.cc")]
+# the trainer reproduces scikit-learn's float arithmetic: no contraction
+# of a * b + c into one rounding
+_FOREST_CMD = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+               "-ffp-contract=off"]
 _lock = threading.Lock()
 _lib = None
+_forest_lib = None
 
 
 def native_build() -> SharedLibBuild:
-    return SharedLibBuild("glia_native", [_SRC], _CMD)
+    return SharedLibBuild("glia_native", _SRC, _CMD)
+
+
+def forest_build() -> SharedLibBuild:
+    return SharedLibBuild("glia_forest", _FOREST_SRC, _FOREST_CMD)
 
 
 def get_lib():
@@ -62,6 +76,17 @@ def get_lib():
         lib.glia_replay_saliency.argtypes = [
             i64, p_i32, p_i32, p_f64, p_f64, i64, i64, p_i32, p_f64,
         ]
+        lib.glia_bc_greedy_merge.restype = i64
+        lib.glia_bc_greedy_merge.argtypes = [
+            i64, p_i64, p_i64, p_i64, p_i64,          # regions
+            i64, p_i64, p_i64, p_i64, p_i64,          # directed pairs
+            i64, p_i64, i64, p_f64, i64,              # ndim/shape/images
+            i64, ctypes.c_double, ctypes.c_double,    # bins/range
+            p_f64, i64, p_f64,                        # pb/thresholds
+            i64, i64, p_i32, p_f32, p_i32, p_i32, p_i32,
+            ctypes.c_int,                             # forest
+            p_i64, p_f64, i64, p_i64,                 # outputs
+        ]
         lib.glia_replay_saliency_median.restype = None
         lib.glia_replay_saliency_median.argtypes = [
             i64, p_i32, p_i32, p_i64, p_f64, i64, i64, p_i32,
@@ -69,6 +94,69 @@ def get_lib():
         ]
         _lib = lib
         return _lib
+
+
+def get_forest_lib():
+    global _forest_lib
+    with _lock:
+        if _forest_lib is not None:
+            return _forest_lib
+        lib = ctypes.CDLL(forest_build().wait())
+        i64, i32 = ctypes.c_int64, ctypes.c_int
+        p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        p_u32 = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.glia_forest_train.restype = i32
+        lib.glia_forest_train.argtypes = [
+            i64, i64, p_f32, p_i32, i32, i64, p_i32, p_u32, i64, i64, i32,
+            p_i64, p_i32, p_f32, p_i32, p_i32, p_i32, p_i64, p_i64,
+        ]
+        _forest_lib = lib
+        return _forest_lib
+
+
+def forest_train_native(X, y, n_classes, counts, seeds, mtry, max_depth=None,
+                        n_threads=1):
+    """Grow one CART tree per row of ``counts`` (glia_forest.cc).
+
+    X: float32 [n, D]; y: class index [n] in [0, n_classes); counts: int32
+    [T, n], each tree's bootstrap counts (its sample weights); seeds: uint32
+    [T], each tree's feature stream; ``max_depth`` None grows to purity.
+    Returns a list of T (feature, threshold, left, right, leaf_class) node
+    arrays, nodes in preorder with the left child first (leaves: feature
+    and threshold -2, children 0), and the depths [T]."""
+    X = np.ascontiguousarray(X, dtype=np.float32)
+    y = np.ascontiguousarray(y, dtype=np.int32)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    seeds = np.ascontiguousarray(seeds, dtype=np.uint32)
+    n, D = X.shape
+    T = counts.shape[0]
+    if counts.shape != (T, n) or seeds.shape != (T,) or y.shape != (n,):
+        raise ValueError("counts must be [T, n], seeds [T] and y [n]")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows: the trainer indexes rows in int32")
+    if y.size and (y.min() < 0 or y.max() >= n_classes):
+        raise ValueError(f"class index outside [0, {n_classes})")
+    if (counts < 0).any():
+        raise ValueError("negative bootstrap count")
+    # a tree of k rows has at most 2k - 1 nodes
+    room = np.maximum(2 * (counts != 0).sum(axis=1) - 1, 1)
+    offset = np.concatenate([[0], np.cumsum(room)]).astype(np.int64)
+    total = int(offset[-1])
+    out = [np.zeros(total, dt) for dt in
+           (np.int32, np.float32, np.int32, np.int32, np.int32)]
+    node_count = np.zeros(T, np.int64)
+    depth = np.zeros(T, np.int64)
+    rc = get_forest_lib().glia_forest_train(
+        n, D, X, y, int(n_classes), T, counts, seeds, int(mtry),
+        -1 if max_depth is None else int(max_depth), int(n_threads), offset,
+        *out, node_count, depth)
+    if rc != 0:
+        raise RuntimeError("forest training wrote past a tree's room")
+    trees = [tuple(a[offset[t]:offset[t] + node_count[t]] for a in out)
+             for t in range(T)]
+    return trees, depth
 
 
 _POLICY_IDS = {"median": 0, "mean": 1, "median_minsize": 2}
@@ -156,6 +244,87 @@ def replay_saliency_native(u, v, s, c, order, n_ids):
     lib.glia_replay_saliency(len(u), u, v, s, c, int(n_ids), n,
                              np.ascontiguousarray(order.ravel()), out)
     return out[:n]
+
+
+def greedy_merge_bc_native(rag, cfg, model, label=-1, max_merges=None):
+    """Serial classifier-in-the-loop greedy merge via the C++ engine
+    (glia_bc.cc): the same algorithm as graph.merge_bc.greedy_merge_bc,
+    bit for bit (canonical sorted-neighbor accumulation, numpy pairwise
+    sums, heapq tie rule), and the serial oracle of the device engine
+    (util/struct_merge_bc.hxx:10-58 semantics).  ``model`` is a
+    ForestModel; merge probabilities are its vote fractions for ``label``.
+
+    Supports the FeatureConfig.standard subset: r_images == b_images,
+    no rl_images, shared hist bins/range, normalizing 1.0, no log-shape
+    and no histogram/median extra feats.  Returns (order [n, 3] int64
+    label-key triples, probs [n])."""
+    if (cfg.rl_images or cfg.use_log_shape or cfg.histogram_as_feats
+            or cfg.median_as_feats or cfg.normalizing_area != 1.0
+            or cfg.normalizing_length != 1.0):
+        raise ValueError("native BC engine supports the standard "
+                         "feature-config subset only")
+    if len(cfg.r_images) != len(cfg.b_images) or any(
+            ri.image is not bi.image or ri.hist_bins != bi.hist_bins
+            or ri.hist_range != bi.hist_range
+            for ri, bi in zip(cfg.r_images, cfg.b_images)):
+        raise ValueError("native BC engine needs r_images == b_images "
+                         "(FeatureConfig.standard)")
+    bins = {i.hist_bins for i in cfg.r_images}
+    ranges = {i.hist_range for i in cfg.r_images}
+    if len(bins) != 1 or len(ranges) != 1:
+        raise ValueError("native BC engine needs one shared hist config")
+    n_bins = bins.pop()
+    lo, hi = ranges.pop()
+    if rag.region_ptr is None or rag.dir_pairs is None:
+        raise ValueError("build RAG with contour_only=False")
+    # the engine's candidate vectors have no saliency columns; a forest
+    # that splits past them would read beyond each vector
+    width = (cfg.boundary_feat_dim(with_saliency=False)
+             + 3 * cfg.region_feat_dim(len(rag.shape), with_saliency=False))
+    if int(model.feature.max(initial=-1)) >= width:
+        raise ValueError(f"forest splits on feature "
+                         f"{int(model.feature.max())} but the BC features "
+                         f"have {width}")
+    lib = get_lib()
+    shape = np.asarray(rag.shape, dtype=np.int64)
+    n_pixels = int(np.prod(shape))
+    images = np.ascontiguousarray(np.stack(
+        [np.asarray(im.image, dtype=np.float64).ravel()
+         for im in cfg.r_images]))
+    pb = np.ascontiguousarray(np.asarray(cfg.pb_image,
+                                         dtype=np.float64).ravel())
+    thresholds = np.ascontiguousarray(cfg.boundary_thresholds,
+                                      dtype=np.float64)
+    border_counts = np.ascontiguousarray(np.diff(rag.border_ptr),
+                                         dtype=np.int64)
+    li = int(np.nonzero(model.classes == label)[0][0])
+    if max_merges is None:
+        max_merges = max(rag.n_regions - 1, 0)
+    order = np.zeros(max(max_merges * 3, 1), dtype=np.int64)
+    probs = np.zeros(max(max_merges, 1), dtype=np.float64)
+    feat_dim = np.zeros(1, dtype=np.int64)
+    n = lib.glia_bc_greedy_merge(
+        rag.n_regions,
+        np.ascontiguousarray(rag.keys, dtype=np.int64),
+        np.ascontiguousarray(rag.region_ptr, dtype=np.int64),
+        np.ascontiguousarray(rag.region_pixels, dtype=np.int64),
+        border_counts,
+        len(rag.dir_pairs),
+        np.ascontiguousarray(rag.dir_pairs[:, 0], dtype=np.int64),
+        np.ascontiguousarray(rag.dir_pairs[:, 1], dtype=np.int64),
+        np.ascontiguousarray(rag.dir_ptr, dtype=np.int64),
+        np.ascontiguousarray(rag.dir_pixels, dtype=np.int64),
+        len(shape), shape, len(cfg.r_images), images, n_pixels,
+        int(n_bins), float(lo), float(hi),
+        pb, len(thresholds), thresholds,
+        model.n_trees, model.feature.shape[1],
+        np.ascontiguousarray(model.feature, dtype=np.int32),
+        np.ascontiguousarray(model.threshold, dtype=np.float32),
+        np.ascontiguousarray(model.left, dtype=np.int32),
+        np.ascontiguousarray(model.right, dtype=np.int32),
+        np.ascontiguousarray(model.leaf_class, dtype=np.int32),
+        li, order, probs, max_merges, feat_dim)
+    return order[: n * 3].reshape(-1, 3).copy(), probs[:n].copy()
 
 
 def replay_saliency_median_native(u, v, edge_ptr, edge_vals, order,

@@ -1,10 +1,13 @@
 """High-level HMT pipeline (PyTorch port of glia_tpu.pipeline).
 
-Training, on the host up to the classifier, which trains on the device:
+Training, on the host up to the classifier:
 
   watershed -> pre_merge -> RAG -> host merge order (C++) -> merge-tree
-  features + merge/split labels -> hmt_train(classifier="mlp"): MLP2 with
-  Adam; hmt_train_sshmt: SSHMT Logsig over the "simple" features
+  features + merge/split labels -> hmt_train(classifier="rf"): a random
+  forest grown on the host by the port's CART trainer (C++);
+  classifier="rf_ensemble": three forests routed by the region areas;
+  classifier="mlp": MLP2 with Adam on the device; hmt_train_sshmt: SSHMT
+  Logsig over the "simple" features on the device
 
 Inference, ``hmt_segment``, ending in tree resolution (greedy or CCM) ->
 final segmentation -> eval (VI / adapted Rand):
@@ -18,10 +21,6 @@ final segmentation -> eval (VI / adapted Rand):
   -> merge probabilities from the classifier
 
   engine="host": the same with the serial C++ merge order
-
-Forest training (hmt_train with classifier "rf" / "rf_ensemble") is not
-ported yet; asking for it raises NotImplementedError naming the
-ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -50,16 +49,16 @@ from .learn.predict import (feature_minmax, predict_logsig, predict_mlp2,
 from .learn.sshmt import train_sshmt
 from .metrics import eval_ri, eval_vi
 from .models.forest import (ForestModel, make_label_scorer,
-                            predict_label_fraction)
-from .models.train_ensemble import train_mlp_supervised
+                            predict_label_fraction, train_forest)
+from .models.train_ensemble import (bc_area_feature_indices, forest_ensemble,
+                                    train_forest_ensemble,
+                                    train_mlp_supervised)
 from .native import greedy_merge_native, pre_merge_native, watershed_native
 
-KINDS = ("rf", "mlp", "logsig")
+KINDS = ("rf", "rf_ensemble", "mlp", "logsig")
 FEATURE_SETS = ("full", "simple")
-NO_FOREST_TRAINER = (
-    "hmt_train(classifier={!r}) needs a random-forest trainer, which the "
-    "port does not have yet (glia_tpu's is sklearn): ROADMAP.md, modules "
-    "to port, item 11")
+FOREST_ARRAYS = ("feature", "threshold", "left", "right", "leaf_class",
+                 "n_classes", "max_depth", "classes")
 
 
 def watershed(pb, level=0.0):
@@ -82,10 +81,13 @@ class HmtModel:
     """Trained boundary classifier + feature configuration knobs
     (glia_tpu's HmtModel).
 
-    kind: "rf" (``forest``), "mlp" (MLP2 with min-max rescale, pred_mlp
-    semantics; ``extra`` = {w, minmax, n1, n2}) or "logsig" (SSHMT Logsig;
-    ``extra`` = {w, minmax[, history]}).  feature_set: "full" (the BC
-    vector) or "simple" (selectFeatures).  ``policy`` is the pb statistic
+    kind: "rf" (``forest``), "rf_ensemble" (three forests routed by the
+    region areas, main_merge_order_bc.cxx's ensemble path; ``extra`` =
+    {ensemble: a ThresholdEnsemble with ``.forests``}), "mlp" (MLP2 with
+    min-max rescale, pred_mlp semantics; ``extra`` = {w, minmax, n1, n2})
+    or "logsig" (SSHMT Logsig; ``extra`` = {w, minmax[, history]}).
+    feature_set: "full" (the BC vector) or "simple" (selectFeatures).
+    ``policy`` is the pb statistic
     the merge order of engines "host" and "device" follows: the one the
     classifier was trained with."""
 
@@ -102,12 +104,15 @@ class HmtModel:
                            dtype: Optional[torch.dtype] = None):
         """Merge probability per row of ``feats``.  Forests: vote fraction
         for label -1 (BC_LABEL_MERGE), ``backend`` as in
-        predict_label_fraction.  MLP2 and Logsig run on ``device`` (the
-        CUDA card by default) in ``dtype``."""
+        predict_label_fraction (an ensemble's members each score the rows
+        routed to them).  MLP2 and Logsig run on ``device`` (the CUDA card
+        by default) in ``dtype``."""
         if self.kind == "rf":
             return predict_label_fraction(self.forest, feats, label=-1,
                                           backend=backend, device=device)
         m = self.extra
+        if self.kind == "rf_ensemble":
+            return m["ensemble"](feats, backend=backend, device=device)
         if self.kind == "mlp":
             return predict_mlp2(m["w"], feats, m["minmax"], m["n1"],
                                 m["n2"], device=device, dtype=dtype)
@@ -123,12 +128,17 @@ def hmt_model_from_arrays(feature=None, threshold=None, left=None,
                           max_depth=None, classes=None, n_bins=16,
                           boundary_thresholds=(0.2, 0.5, 0.8),
                           policy="median", kind="rf", feature_set="full",
-                          w=None, minmax=None, n1=None, n2=None) -> HmtModel:
+                          w=None, minmax=None, n1=None, n2=None,
+                          forests=None, dim0=None, dim1=None,
+                          ensemble_threshold=None) -> HmtModel:
     """An HmtModel from the fields of glia_tpu's HmtModel passed as plain
     values and numpy arrays: for kind="rf" its forest's node arrays (the
-    first eight arguments), for kind="mlp" its extra's ``w``, ``minmax``,
-    ``n1`` and ``n2``, for kind="logsig" ``w`` and ``minmax``.  Other
-    kinds raise."""
+    first eight arguments); for kind="rf_ensemble" its ensemble's three
+    forests (``forests``: three mappings of those eight names to the
+    member's arrays), the area columns ``dim0`` and ``dim1`` and the
+    routing ``ensemble_threshold``; for kind="mlp" its extra's ``w``,
+    ``minmax``, ``n1`` and ``n2``; for kind="logsig" ``w`` and
+    ``minmax``.  Other kinds raise."""
     if kind not in KINDS:
         raise ValueError(f"model kind {kind!r} is not ported "
                          f"({'|'.join(KINDS)})")
@@ -137,20 +147,34 @@ def hmt_model_from_arrays(feature=None, threshold=None, left=None,
                          f"({'|'.join(FEATURE_SETS)})")
     tree_arrays = (feature, threshold, left, right, leaf_class, n_classes,
                    max_depth, classes)
+    given = {"w": w, "minmax": minmax, "n1": n1, "n2": n2,
+             "forests": forests, "dim0": dim0, "dim1": dim1,
+             "ensemble_threshold": ensemble_threshold,
+             **dict(zip(FOREST_ARRAYS, tree_arrays))}
+    takes = {"rf": FOREST_ARRAYS, "mlp": ("w", "minmax", "n1", "n2"),
+             "logsig": ("w", "minmax"),
+             "rf_ensemble": ("forests", "dim0", "dim1",
+                             "ensemble_threshold")}[kind]
+    optional = ("minmax",) if kind == "logsig" else ()
+    missing = [k for k in takes if given[k] is None and k not in optional]
+    extra_args = [k for k, v in given.items()
+                  if v is not None and k not in takes]
+    if missing or extra_args:
+        raise ValueError(f"kind={kind!r} takes {', '.join(takes)}"
+                         f"{' (minmax optional)' if optional else ''}; "
+                         f"missing {missing}, not taken {extra_args}")
     forest, extra = None, None
     if kind == "rf":
-        if any(a is None for a in tree_arrays) or w is not None:
-            raise ValueError("kind='rf' takes the eight forest arrays and "
-                             "no weights")
         forest = ForestModel.from_arrays(*tree_arrays)
+    elif kind == "rf_ensemble":
+        if len(forests) != 3:
+            raise ValueError(f"an ensemble has 3 forests, got "
+                             f"{len(forests)}")
+        members = [ForestModel.from_arrays(*(f[k] for k in FOREST_ARRAYS))
+                   for f in forests]
+        extra = {"ensemble": forest_ensemble(
+            members, int(dim0), int(dim1), float(ensemble_threshold))}
     else:
-        need = (w, minmax, n1, n2) if kind == "mlp" else (w,)
-        if any(a is None for a in need) or any(
-                a is not None for a in tree_arrays):
-            takes = ("w, minmax, n1 and n2" if kind == "mlp"
-                     else "w and an optional minmax")
-            raise ValueError(f"kind={kind!r} takes {takes} and no forest "
-                             f"arrays")
         extra = {"w": np.asarray(w, dtype=np.float64),
                  "minmax": (None if minmax is None
                             else np.asarray(minmax, dtype=np.float64))}
@@ -232,20 +256,37 @@ def hmt_train(slices, policy="median", rule="f1", n_trees=100, seed=0,
     slices: sequence of dicts with keys pb, intensity, truth.
     Pipeline per slice: watershed -> pre_merge -> merge_order_pb ->
     bc_feat + bc_label (``training_samples``) -> pooled classifier
-    training on ``device`` (the CUDA card by default) in ``dtype``.
-    classifier: "mlp" (``mlp_hidden`` units, Adam); "rf" and "rf_ensemble"
-    (``n_trees``, ``ensemble_threshold``) raise NotImplementedError until
-    the port has a forest trainer.  ``stats`` receives the stage seconds
-    of training_samples and train_sshmt.
+    training.  classifier: "rf" (a forest of ``n_trees`` trees,
+    models.forest.train_forest) or "rf_ensemble" (three forests routed by
+    the region areas at ``ensemble_threshold``, the median of the second
+    area column when None), grown on the host on every core whatever
+    ``device`` and ``dtype`` say; "mlp" (``mlp_hidden`` units, Adam) on
+    ``device`` (the CUDA card by default) in ``dtype``.  ``stats`` receives the stage seconds of
+    training_samples, of train_sshmt and, for forests, t_forest.
     """
-    if classifier in ("rf", "rf_ensemble"):
-        raise NotImplementedError(NO_FOREST_TRAINER.format(classifier))
-    if classifier != "mlp":
+    if classifier not in ("rf", "rf_ensemble", "mlp"):
         raise ValueError(f"classifier {classifier!r} (rf|rf_ensemble|mlp)")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if classifier == "mlp" else None
     st = stats if stats is not None else {}
     X, y = training_samples(slices, policy, rule, watershed_level,
                             pre_merge_size, n_bins, st)
+    if classifier == "rf":
+        t = time.perf_counter()
+        forest = train_forest(X, y, n_trees=n_trees, seed=seed, n_jobs=-1)
+        st["t_forest"] = time.perf_counter() - t
+        return HmtModel(forest=forest, n_bins=n_bins, policy=policy)
+    if classifier == "rf_ensemble":
+        cfg = FeatureConfig.standard(
+            slices[0]["pb"], slices[0].get("intensity"), n_bins=n_bins)
+        dim0, dim1 = bc_area_feature_indices(cfg)
+        if ensemble_threshold is None:
+            ensemble_threshold = float(np.median(X[:, dim1]))
+        t = time.perf_counter()
+        ens = train_forest_ensemble(X, y, dim0, dim1, ensemble_threshold,
+                                    n_trees=n_trees, seed=seed, n_jobs=-1)
+        st["t_forest"] = time.perf_counter() - t
+        return HmtModel(forest=None, n_bins=n_bins, policy=policy,
+                        kind="rf_ensemble", extra={"ensemble": ens})
     m = train_mlp_supervised(X, y, hidden=mlp_hidden, seed=seed,
                              device=dev, dtype=dtype, stats=st)
     return HmtModel(forest=None, n_bins=n_bins, policy=policy,
@@ -344,8 +385,8 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
     exact merge-time saliencies, then host feature extraction over the
     merge tree and one batched scoring.  engine="host": the same with the
     exact serial C++ merge order.  ``backend`` picks a forest's walk
-    there ("np": host float64; "device": the device walk); MLP2 and Logsig
-    models run on the device in ``dtype``.
+    there, an ensemble's members' too ("np": host float64; "device": the
+    device walk); MLP2 and Logsig models run on the device in ``dtype``.
     ``device`` defaults to the CUDA card and raises without one; pass
     device="cpu" for the plain PyTorch path.  A ``stats`` dict receives
     the wall seconds of each stage (t_watershed, t_pre_merge, t_rag,

@@ -117,10 +117,11 @@ def test_no_device_without_cuda_raises(case, monkeypatch):
 @pytest.mark.parametrize("kw", [{"classifier": "rf"},
                                 {"classifier": "rf_ensemble"},
                                 {"merge_mode": "fused_ms"}])
-def test_unported_engines_raise(case, kw):
+def test_unported_engines_raise(case, kw, monkeypatch):
     """What the port does not have yet raises NotImplementedError naming
-    its ROADMAP.md item: forest training (both of hmt_train's forest
-    classifiers, before any work) and the multi-phase merge engine."""
+    its ROADMAP.md item: the multi-phase merge engine.  hmt_train's forest
+    classifiers are ported: they train on the host (no card asked for),
+    return their kind of model, and an unknown classifier raises."""
     s, _, _ = case
     if "merge_mode" in kw:
         rag = t_build_rag(tp.watershed(s["pb"], 0.05), contour_only=False)
@@ -128,10 +129,14 @@ def test_unported_engines_raise(case, kw):
             tmd.greedy_merge_device(rag, s["pb"], mode=kw["merge_mode"],
                                     device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-        tp.hmt_train([s], device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="forest trainer"):
-        tp.hmt_train(None, classifier=kw["classifier"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = tp.hmt_train([s], n_trees=5, **kw)
+    assert m.kind == kw["classifier"]
+    forests = ([m.forest] if m.kind == "rf"
+               else m.extra["ensemble"].forests)
+    assert [f.n_trees for f in forests] == [5] * len(forests)
+    with pytest.raises(ValueError, match="rf|rf_ensemble|mlp"):
+        tp.hmt_train([s], classifier=kw["classifier"] + "_x", device="cpu")
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(case):
@@ -257,8 +262,16 @@ def test_device_engine_checks_policy_and_model(case):
             f.n_classes, f.max_depth, f.classes)
     with pytest.raises(ValueError, match="kind"):
         tp.hmt_model_from_arrays(*args, kind="mlp")
-    with pytest.raises(ValueError, match="kind"):
+    # an ensemble takes three forests' arrays, not one forest's
+    with pytest.raises(ValueError, match="kind='rf_ensemble'"):
         tp.hmt_model_from_arrays(*args, kind="rf_ensemble")
+    member = dict(zip(tp.FOREST_ARRAYS, args))
+    ens = tp.hmt_model_from_arrays(kind="rf_ensemble", forests=[member] * 3,
+                                   dim0=40, dim1=76, ensemble_threshold=9.0)
+    X = np.random.default_rng(2).random((50, 143)) * 20
+    np.testing.assert_array_equal(
+        ens.predict_merge_prob(X, device="cpu"),
+        model.predict_merge_prob(X, device="cpu"))
     with pytest.raises(ValueError, match="feature_set"):
         tp.hmt_model_from_arrays(*args, feature_set="partial")
     # a forest on the "simple" features runs on the host and device
