@@ -10,7 +10,8 @@ median) with seeded random forests in the reference's shape (255 trees,
 classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
 and on ``engine="host"``; then forests trained by the port's CART trainer
-on every engine.  Phases, one JSON line each:
+on every engine; then bench.py's merge flow on its 4096 x 4096 section.
+Phases, one JSON line each:
 
   env     torch / CUDA versions, the card's name and power limit
   build   the CUDA kernels (nvcc, sm_90a) and the C++ host runtime (g++),
@@ -64,7 +65,22 @@ on every engine.  Phases, one JSON line each:
           device_bc on the section's BC_SIDE^2 corner;
           hmt_train(classifier="rf_ensemble"), then engine="host" with
           it; kernel B1 against the plain walk at each trained forest's
-          batch (plan, ms, bound); then the ``kernels`` line
+          batch (plan, ms, bound)
+  slice_merge
+          bench.py's merge flow at 4096^2 (its section: 243,749 regions
+          and 597,140 edges in glia_tpu): the host serial baseline, then
+          merge_batched_device_exact (mode="fused_ms", the multi-phase
+          engine, and the exact saliencies on the card) and the same flow
+          with mode="fused", each a first call and timed repeats (edges/s,
+          supersteps, buckets, kernels per superstep, busy share); both
+          modes' threshold cuts at VI 0 to each other, repeats identical,
+          float64 exact saliencies within 1e-12 of the C++ replay, no
+          fallback, or the script fails; kernel B2 at the engine's
+          shapes; the sparse-pair metrics of the cut against the host's.
+          On the data section: merge_serial_device (float64, card = CPU
+          bit for bit), mode="chunked" (card rows = CPU rows), the dense
+          device metrics and the tree scan against the host's; then the
+          ``kernels`` line
 
 Any failed phase raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
@@ -509,8 +525,8 @@ def phase_slice(data, model, dev):
     stats = {}
     kcuda.reset_launches()
     t = time.perf_counter()
-    seg, info = hmt_segment(data["pb"], data["intensity"], hmt, device=dev,
-                            stats=stats)
+    seg, info = hmt_segment(data["pb"], data["intensity"], hmt,
+                            engine="device_bc", device=dev, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(kcuda.launches)
@@ -588,12 +604,13 @@ def phase_slice(data, model, dev):
 SEGMENT_SUM_RTOL = 1e-5
 
 
-def capture_segment_sums(fn, keep=True):
+def capture_segment_sums(fn, keep=True, first=None):
     """Run ``fn()`` and return the (values, ids, n_segments, sorted) of
     every segment sum the merge engines asked for meanwhile.  Every call
     that states ``sorted=True`` is checked on the card: its ids must be
     non-decreasing (the kernel takes the caller's word for it).
-    ``keep=False`` only checks and counts: the list holds None."""
+    ``keep=False`` only checks and counts: the list holds None.
+    ``first``: only the first so many calls are checked and listed."""
     import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
 
@@ -601,6 +618,8 @@ def capture_segment_sums(fn, keep=True):
     real = md.segment_sum_auto
 
     def record(values, seg_ids, n_segments, sorted=False):
+        if first is not None and len(calls) >= first:
+            return real(values, seg_ids, n_segments, sorted=sorted)
         if sorted and bool((seg_ids[1:] < seg_ids[:-1]).any()):
             raise AssertionError(
                 f"segment sum number {len(calls)} states sorted=True but "
@@ -877,13 +896,14 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
                                  f"{policy}) differ in rows or saliencies: "
                                  f"{rerun}")
 
-        # the merge loop alone: wall, then kernels and busy time profiled
+        # the merge loop alone, in the path's mode="fused_ms": wall, then
+        # kernels and busy time profiled
         def merge_loop(st):
+            kw = dict(mode="fused_ms", device=dev, stats=st)
             if policy == "mean":
-                md.merge_batched_device(u, v, s, c, R, device=dev, stats=st)
+                md.merge_batched_device(u, v, s, c, R, **kw)
             else:
-                md.merge_batched_device_hist(u, v, h, R, device=dev,
-                                             stats=st)
+                md.merge_batched_device_hist(u, v, h, R, **kw)
             torch.cuda.synchronize()
 
         loop_stats = {}
@@ -893,7 +913,8 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
         prof = profile_run(lambda: merge_loop({}))
         n_steps = loop_stats["n_supersteps"]
         prof.update(
-            supersteps=n_steps, wall_ms_unprofiled=loop_s * 1e3,
+            supersteps=n_steps, buckets=loop_stats["buckets"],
+            wall_ms_unprofiled=loop_s * 1e3,
             kernels_per_superstep=prof["kernels_launched"] / n_steps,
             busy_share_of_unprofiled_wall=prof["device_busy_ms"]
             / (loop_s * 1e3))
@@ -909,7 +930,8 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
         if policy == "mean":
             # exact saliencies on the card (float32) against the serial
             # host replay (float64) of the same order
-            o, _, n_m = md.merge_batched_device(u, v, s, c, R, device=dev)
+            o, _, n_m = md.merge_batched_device(u, v, s, c, R,
+                                                mode="fused_ms", device=dev)
             ex = md.exact_saliency_device(u, v, s, c, o, R, device=dev)
             ex = ex[:n_m].double().cpu().numpy()
             host = md.replay_exact_saliency(u, v, s, c,
@@ -1407,7 +1429,8 @@ def phase_slice_forest(data, seg, dev, inputs, seed):
                 max(10, int(FOREST_TREES * FOREST_PHASE_S / train_s / 4)))
     bc_forest, bc_train_s = train(X_bc, y, n_trees=bc_trees)
     bc_hmt = tp.HmtModel(forest=bc_forest, n_bins=16)
-    _, info_bc, _, line_bc = segment("forest_device_bc", bc_hmt)
+    _, info_bc, _, line_bc = segment("forest_device_bc", bc_hmt,
+                                     engine="device_bc")
 
     # the loop again: the same rows and probabilities, every batch of B1
     # held against the plain walk (a comparison outside the counted run)
@@ -1462,7 +1485,7 @@ def phase_slice_forest(data, seg, dev, inputs, seed):
         seg_c, tree,
         resolve_tree_greedy(tree, node_potentials(tree, probs_n)))
     seg_d, info_d = tp.hmt_segment(crop["pb"], crop["intensity"], bc_hmt,
-                                   device=dev)
+                                   engine="device_bc", device=dev)
     emit({"phase": "slice_forest", "forest": "rf_bc", "D": int(
               X_bc.shape[1]), "trees": bc_trees,
           "trees_cut": bc_trees < FOREST_TREES, "features_s": features_s,
@@ -1512,6 +1535,440 @@ def phase_slice_forest(data, seg, dev, inputs, seed):
     return paths, b1
 
 
+# bench.py's configuration (bench.py:44-68): a 4096^2 synthetic section
+# with (side // 14)^2 cells, seed 11, blur 1.2, noise 0.12, watershed at
+# 0.004 on the pb filtered by a Gaussian of sigma 1; its RAG had 243,749
+# regions and 597,140 edges in glia_tpu (BENCH_r05.json)
+MERGE_SIDE = 4096
+MERGE_CELL = 14
+MERGE_EXPECTED = {"R": 243749, "E": 597140}
+# timed calls of each merge engine after its first call, as bench.py
+MERGE_REPS = 5
+# exact saliencies in float64 on the card against the C++ serial replay
+EXACT_F64_RTOL = 1e-12
+# device VI / Rand against the host's, float64 on both sides
+METRIC_RTOL = 1e-12
+
+
+def bench_section():
+    """bench.py's section: the synthetic slice, its watershed on the
+    filtered pb and its RAG (with region sizes)."""
+    import scipy.ndimage as ndi
+
+    from glia_tpu_torch.data.synthetic import synthetic_em_slice
+    from glia_tpu_torch.graph.rag import build_rag
+    from glia_tpu_torch.pipeline import watershed
+
+    n_cells = (MERGE_SIDE // MERGE_CELL) ** 2
+    data = synthetic_em_slice((MERGE_SIDE, MERGE_SIDE), n_cells=n_cells,
+                              seed=11, blur=1.2, noise=0.12)
+    seg = watershed(ndi.gaussian_filter(data["pb"], 1.0), 0.004)
+    return data, seg, build_rag(seg, contour_only=False), n_cells
+
+
+def rel_gap(got, want):
+    """Largest |got - want| / |want| over the rows where want is defined;
+    raises unless both are undefined (NaN) in the same rows."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError("undefined (NaN) rows differ")
+    ok = ~np.isnan(want)
+    if not ok.any():
+        return 0.0
+    return float(np.max(np.abs(got[ok] - want[ok])
+                        / np.maximum(np.abs(want[ok]), 1e-300)))
+
+
+def same_run(a, b):
+    """Two (order, saliencies, n_merges) runs give the same rows and the
+    same saliency bits."""
+    n = a[2]
+    return (n == b[2] and torch.equal(a[0][:n], b[0][:n])
+            and np.array_equal(a[1][:n].cpu().numpy(),
+                               b[1][:n].cpu().numpy(), equal_nan=True))
+
+
+def host_interval_stats(tree, leaf_stats):
+    """The host's all-node stats of ``ops.tree_scan``'s inputs: sums by a
+    float64 prefix sum over the leaves in DFS order, minima and maxima by
+    one bottom-up pass over the nodes (children come before parents)."""
+    from glia_tpu_torch.graph.tree import dfs_intervals
+
+    _, lo, hi, leaf_order = dfs_intervals(tree)
+    row_of = np.full(tree.n_nodes, -1, dtype=np.int64)
+    leaf_nodes = np.nonzero(tree.is_leaf)[0]
+    row_of[leaf_nodes] = np.arange(len(leaf_nodes))
+    out = {}
+    for (kind, name), vals in leaf_stats.items():
+        vals = np.asarray(vals, np.float64)
+        if kind == "add":
+            P = np.concatenate([np.zeros((1, vals.shape[1])),
+                                np.cumsum(vals[row_of[leaf_order]], 0)])
+            out[name] = P[hi] - P[lo]
+            continue
+        red = np.minimum if kind == "min" else np.maximum
+        node = np.zeros((tree.n_nodes, vals.shape[1]))
+        node[leaf_nodes] = vals
+        for i in np.nonzero(~tree.is_leaf)[0]:
+            node[i] = red(node[tree.left[i]], node[tree.right[i]])
+        out[name] = node
+    return out
+
+
+def phase_slice_merge(data, seg, rag, dev):
+    """bench.py's merge flow on the card at 4096^2, then the other device
+    engines, the device metrics and the tree scan on the data section.
+
+    - the host serial mean greedy (native.greedy_merge_native), bench.py's
+      baseline; then merge_batched_device_exact (mode="fused_ms" and the
+      exact saliencies on the card, the main path: one first call, whose
+      launches are counted, then MERGE_REPS timed calls) and the same flow
+      with mode="fused": edges/s as bench.py defines it, (E + merges) /
+      median wall, supersteps, buckets, kernels per superstep and device
+      busy share.  Hard: no fallback; both modes give the same number of
+      merges and threshold cuts (at k = R - n_cells, on their exact
+      saliencies) at VI 0.0 to each other; every call of an engine gives
+      the first call's rows and saliency bits; in float64 the exact
+      saliencies are within EXACT_F64_RTOL of the C++ replay.
+    - B2 against its plain version at the multi-phase engine's shapes
+      (each phase's dedupe, the LCA sums) and at the new engines' and
+      metrics' shapes.
+    - on the data section: merge_serial_device in float64 (rows and
+      saliencies equal to the CPU's bit for bit, hard; rows against the
+      C++ serial engine, printed); mode="chunked" for mean and median in
+      float32 (rows equal to the CPU's, hard); vi_device /
+      adapted_rand_device against the host metrics (METRIC_RTOL, hard);
+      node_region_stats_device against the host's interval sums (minima,
+      maxima and counts equal, sums within 1e-12 of the largest, hard).
+    - at 4096^2 the sparse-pair metrics of the fused_ms cut against
+      eval_vi and the host's big-integer pair counts (counts equal, VI
+      within METRIC_RTOL, hard).
+
+    Returns (launch counts per path, B2's per-shape results)."""
+    import glia_tpu_torch.graph.merge_device as md
+    import glia_tpu_torch.metrics.device as mdev
+    from glia_tpu_torch.graph.merge import apply_merge_order
+    from glia_tpu_torch.graph.tree import build_tree
+    from glia_tpu_torch.metrics import eval_ri, eval_vi
+    from glia_tpu_torch.metrics.contingency import (contingency_table,
+                                                    pair_stats_from_counts)
+    from glia_tpu_torch.metrics.rand import adapted_rand_from_pairs
+    from glia_tpu_torch.metrics.vi import centropy
+    from glia_tpu_torch.native import greedy_merge_native
+    from glia_tpu_torch.ops import cuda as kcuda
+    from glia_tpu_torch.ops.tree_scan import node_region_stats_device
+
+    t_phase = time.perf_counter()
+    paths, shapes, failures = {}, [], []
+
+    def counted(name, fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after, into ``paths[name]``; B2 must have launched."""
+        kcuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = dict(kcuda.launches)
+        if paths[name]["segment_sum"] == 0:
+            raise AssertionError(f"{name}: segment_sum never launched")
+        return out
+
+    t = time.perf_counter()
+    big, seg_b, rag_b, n_cells = bench_section()
+    setup_s = time.perf_counter() - t
+    pb, truth = big["pb"], big["truth"]
+    R, E = rag_b.n_regions, rag_b.n_edges
+    emit({"phase": "slice_merge", "part": "data", "side": MERGE_SIDE,
+          "n_cells": n_cells, "R": R, "E": E,
+          "glia_tpu_R_E": MERGE_EXPECTED,
+          "same_as_glia_tpu": R == MERGE_EXPECTED["R"]
+          and E == MERGE_EXPECTED["E"], "setup_s": setup_s})
+
+    # bench.py's baseline: the exact serial greedy merge on the host
+    t = time.perf_counter()
+    order_h, sal_h = greedy_merge_native(rag_b, pb, policy="mean")
+    host_s = time.perf_counter() - t
+    u, v, s, c = md.edge_mean_arrays(rag_b, pb)
+    # inputs staged on the card once, as bench.py does
+    u_d = torch.as_tensor(u, device=dev).long()
+    v_d = torch.as_tensor(v, device=dev).long()
+    s_d = torch.as_tensor(s, device=dev).float()
+    c_d = torch.as_tensor(c, device=dev).float()
+
+    def run_exact(mode, st):
+        """bench.py's run_exact: the merge and the exact saliencies on the
+        card, as one call for fused_ms, as two otherwise."""
+        if mode == "fused_ms":
+            return md.merge_batched_device_exact(u_d, v_d, s_d, c_d, R,
+                                                 stats=st, device=dev)
+        o, sb, n = md.merge_batched_device(u_d, v_d, s_d, c_d, R, mode=mode,
+                                           stats=st, device=dev)
+        ex = md.exact_saliency_device(u_d, v_d, s_d, c_d, o, R, device=dev)
+        return o, torch.where(torch.isnan(ex), sb, -ex), n
+
+    engines, firsts = {}, {}
+    for mode in ("fused_ms", "fused"):
+        st = {}
+        t = time.perf_counter()
+        first = counted(f"merge_{mode}", lambda: run_exact(mode, st))
+        first_s = time.perf_counter() - t
+        reps, same = [], True
+        for _ in range(MERGE_REPS):
+            t = time.perf_counter()
+            out = run_exact(mode, {})
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t)
+            same = same and same_run(out, first)
+        if not same:
+            failures.append(f"{mode}: two card runs differ in rows or "
+                            f"saliencies")
+        med = float(np.median(reps))
+        prof = profile_run(lambda: run_exact(mode, {}))
+        steps = st["n_supersteps"]
+        prof.update(kernels_per_superstep=prof["kernels_launched"] / steps,
+                    busy_share_of_median_wall=prof["device_busy_ms"]
+                    / (med * 1e3))
+        engines[mode] = {
+            "first_call_s": first_s, "reps_s": reps, "median_s": med,
+            "min_s": float(np.min(reps)), "merges": first[2],
+            "edges_per_s": (E + first[2]) / med,
+            "edges_per_s_min_rep": (E + first[2]) / float(np.min(reps)),
+            "supersteps": steps, "buckets": st["buckets"],
+            "fallback": st.get("fallback"), "sal_L": st.get("sal_L"),
+            "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
+            "launches": paths[f"merge_{mode}"],
+            "repeat_runs_identical": same, "profile": prof}
+        firsts[mode] = first
+    if engines["fused_ms"]["fallback"] is not False:
+        failures.append("fused_ms fell back to the single-phase engine")
+    if engines["fused_ms"]["merges"] != engines["fused"]["merges"]:
+        failures.append("fused_ms and fused merge counts differ")
+
+    # threshold cuts at bench.py's k on each mode's exact saliencies
+    k = R - n_cells
+    tau = -sal_h[k - 1]
+    cuts = {}
+    for mode, (o, sal, n) in firsts.items():
+        keys = md.order_to_keys(o, n, rag_b)
+        mask = md.threshold_cut(keys, -sal[:n].double().cpu().numpy(), tau)
+        cuts[mode] = apply_merge_order(seg_b, keys[mask])
+    seg_h = apply_merge_order(seg_b, order_h[:k])
+    n_ms = firsts["fused_ms"][2]
+    rows_identical = bool(torch.equal(firsts["fused_ms"][0],
+                                      firsts["fused"][0]))
+    vi_cross = eval_vi(cuts["fused_ms"], cuts["fused"])[2]
+    if vi_cross != 0.0:
+        failures.append(f"fused_ms and fused cuts differ: VI {vi_cross}")
+    vi_serial = eval_vi(seg_h, truth)
+    vi_device = eval_vi(cuts["fused_ms"], truth)
+
+    # exact saliencies: float64 on the card against the C++ replay of the
+    # same order; float32 (the main path) against the replay of its order
+    st64 = {}
+    o64, _, n64 = md.merge_batched_device_exact(
+        u, v, s, c, R, dtype=torch.float64, stats=st64, device=dev)
+    ex64 = md.exact_saliency_device(u, v, s, c, o64, R, device=dev,
+                                    dtype=torch.float64)[:n64]
+    t = time.perf_counter()
+    host64 = md.replay_exact_saliency(u, v, s, c, o64[:n64].cpu().numpy(),
+                                      engine="native")
+    replay_s = time.perf_counter() - t
+    gap64 = rel_gap(ex64.cpu().numpy(), host64)
+    if gap64 > EXACT_F64_RTOL:
+        failures.append(f"float64 exact saliencies differ from the C++ "
+                        f"replay by {gap64} relative")
+    host32 = md.replay_exact_saliency(
+        u, v, s, c, firsts["fused_ms"][0][:n_ms].cpu().numpy())
+    gap32 = rel_gap(-firsts["fused_ms"][1][:n_ms].double().cpu().numpy(),
+                    host32)
+
+    # the sparse-pair metrics of the fused_ms cut at 4096^2
+    l0, l1, cc = contingency_table(cuts["fused_ms"], truth,
+                                   exclude_truth=(0,))
+    sid, S = mdev.densify_labels(l0)
+    tid, T = mdev.densify_labels(l1)
+
+    def pair_metrics():
+        return ([float(x) for x in mdev.vi_from_pairs_device(
+                    sid, tid, cc, S, T, device=dev)],
+                [int(x) for x in mdev.pair_counts_from_pairs_device(
+                    sid, tid, cc, S, T, device=dev)],
+                [float(x) for x in mdev.adapted_rand_from_pairs_device(
+                    sid, tid, cc, S, T, device=dev)])
+
+    t = time.perf_counter()
+    vi_p, counts_p, rand_p = counted("metrics_pairs", pair_metrics)
+    pairs_s = time.perf_counter() - t
+    tp, tn, fp, fn = pair_stats_from_counts(l0, l1, cc)
+    host_rand = adapted_rand_from_pairs(tp, tn, fp, fn)
+    pairs = {"K": int(len(cc)), "S": S, "T": T, "seconds": pairs_s,
+             "pair_counts": counts_p,
+             "pair_counts_equal": counts_p == [tp, tp + fp, tp + fn],
+             "vi_rel_gap": rel_gap(vi_p, vi_device),
+             "rand_rel_gap": rel_gap(rand_p, host_rand)}
+    if not pairs["pair_counts_equal"]:
+        failures.append(f"sparse pair counts {counts_p} differ from the "
+                        f"host's {[tp, tp + fp, tp + fn]}")
+    if max(pairs["vi_rel_gap"], pairs["rand_rel_gap"]) > METRIC_RTOL:
+        failures.append(f"sparse-pair VI / Rand differ from the host's: "
+                        f"{pairs}")
+    emit({"phase": "slice_merge", "part": "merge", "R": R, "E": E,
+          "host_serial": {"merges": int(len(order_h)), "seconds": host_s,
+                          "edges_per_s": (E + len(order_h)) / host_s},
+          "engines": engines,
+          "fused_ms_vs_fused": {"rows_identical": rows_identical,
+                                "vi_between_cuts": vi_cross},
+          "threshold_cut": {"k": k, "tau": float(tau),
+                            "vi_device_cut_vs_serial_cut": eval_vi(
+                                cuts["fused_ms"], seg_h)[2],
+                            "vi_serial_vs_truth": vi_serial,
+                            "vi_device_vs_truth": vi_device},
+          "exact_saliency": {"f64_rel_gap_vs_replay": gap64,
+                             "f64_merges": n64,
+                             "f64_supersteps": st64["n_supersteps"],
+                             "f64_buckets": st64["buckets"],
+                             "f32_rel_gap_vs_replay": gap32,
+                             "replay_s": replay_s},
+          "sparse_pair_metrics": pairs})
+
+    # B2 at the multi-phase engine's shapes: each phase's first dedupe and
+    # the LCA-keyed sum (checked for sorted ids all along the run)
+    calls = capture_segment_sums(lambda: run_exact("fused_ms", {}))
+    buckets = engines["fused_ms"]["buckets"]
+    for cap in buckets:
+        call = next(x for x in calls if x[0].ndim == 2
+                    and x[0].shape[0] == cap)
+        shapes.append(check_segment_sum(f"fused_ms_dedupe_{cap}", *call))
+    shapes.append(check_segment_sum("fused_ms_lca_keys", *calls[-2]))
+
+    # the serial engine on the data section: card and CPU in float64
+    R1, pb1 = rag.n_regions, data["pb"]
+    u1, v1, s1, c1 = md.edge_mean_arrays(rag, pb1)
+    box = []
+    t = time.perf_counter()
+    # the first partner sum is kept for B2's check
+    serial_call = capture_segment_sums(lambda: box.append(counted(
+        "merge_serial", lambda: md.merge_serial_device(
+            u1, v1, s1, c1, R1, dtype=torch.float64, device=dev))),
+        first=1)[0]
+    card_s = time.perf_counter() - t
+    card = box[0]
+    t = time.perf_counter()
+    cpu = md.merge_serial_device(u1, v1, s1, c1, R1, dtype=torch.float64,
+                                 device="cpu")
+    cpu_s = time.perf_counter() - t
+    serial_same = same_run((card[0].cpu(), card[1].cpu(), card[2]), cpu)
+    if not serial_same:
+        failures.append("merge_serial_device: card and CPU float64 runs "
+                        "differ")
+    order_n, sal_n = greedy_merge_native(rag, pb1, policy="mean")
+    keys_s = md.order_to_keys(card[0], card[2], rag)
+    serial = {"merges": card[2], "card_s": card_s, "cpu_s": cpu_s,
+              "card_equals_cpu": serial_same,
+              "rows_equal_native": bool(np.array_equal(keys_s, order_n)),
+              "rel_gap_native": rel_gap(
+                  -card[1][:card[2]].cpu().numpy(), -sal_n)
+              if len(keys_s) == len(order_n) else None,
+              "launches": paths["merge_serial"]}
+    shapes.append(check_segment_sum("serial_partner", *serial_call))
+
+    # the chunked engine on the data section, card and CPU in float32
+    _, _, h1 = md.edge_hist_arrays(rag, pb1, n_bins=32)
+    chunked = {}
+    for policy in ("mean", "median"):
+        def run(device, st):
+            kw = dict(mode="chunked", dtype=torch.float32, stats=st,
+                      device=device)
+            if policy == "mean":
+                return md.merge_batched_device(u1, v1, s1, c1, R1, **kw)
+            return md.merge_batched_device_hist(u1, v1, h1, R1, **kw)
+
+        st, st_cpu, box = {}, {}, []
+        t = time.perf_counter()
+        dedupe = capture_segment_sums(lambda: box.append(counted(
+            f"merge_chunked_{policy}", lambda: run(dev, st))), first=1)[0]
+        card_s = time.perf_counter() - t
+        got = box[0]
+        want = run("cpu", st_cpu)
+        rows = got[2] == want[2] and torch.equal(got[0].cpu(), want[0])
+        if not rows or st["buckets"] != st_cpu["buckets"]:
+            failures.append(f"chunked ({policy}): card rows differ from the "
+                            f"CPU's")
+        chunked[policy] = {
+            "merges": got[2], "supersteps": st["n_supersteps"],
+            "buckets": st["buckets"], "card_s": card_s,
+            "rows_equal_cpu": bool(rows),
+            "saliencies_equal_cpu": bool(torch.equal(got[1].cpu(), want[1])),
+            "launches": paths[f"merge_chunked_{policy}"]}
+        if policy == "mean":
+            shapes.append(check_segment_sum("chunked_dedupe", *dedupe))
+
+    # dense device metrics of the data section's over-segmentation
+    sid1, S1 = mdev.densify_labels(seg)
+    tid1, T1 = mdev.densify_labels(data["truth"], exclude=(0,))
+    vi_d, rand_d = counted("metrics_dense", lambda: (
+        [float(x) for x in mdev.vi_device(sid1, tid1, S1, T1, device=dev)],
+        [float(x) for x in mdev.adapted_rand_device(sid1, tid1, S1, T1,
+                                                    device=dev)]))
+    fs = centropy(data["truth"], seg, excluded0=(0,), itk_quirk=False)
+    fm = centropy(seg, data["truth"], excluded1=(0,), itk_quirk=False)
+    dense = {"S": S1, "T": T1, "vi": vi_d,
+             "vi_rel_gap": rel_gap(vi_d, [fs, fm, fs + fm]),
+             "rand_rel_gap": rel_gap(rand_d, eval_ri(seg, data["truth"])),
+             "launches": paths["metrics_dense"]}
+    if max(dense["vi_rel_gap"], dense["rand_rel_gap"]) > METRIC_RTOL:
+        failures.append(f"dense device VI / Rand differ from the host's: "
+                        f"{dense}")
+    keep = (sid1.ravel() >= 0) & (tid1.ravel() >= 0)
+    code = np.where(keep, sid1.ravel().astype(np.int64) * T1 + tid1.ravel(),
+                    S1 * T1)
+    shapes.append(check_segment_sum(
+        "metrics_contingency",
+        torch.as_tensor(keep, device=dev).to(torch.float64),
+        torch.as_tensor(code, device=dev), S1 * T1, False))
+    shapes.append(check_segment_sum(
+        "metrics_pair_rows", torch.as_tensor(cc, device=dev).double(),
+        torch.as_tensor(sid, device=dev).long(), S, False))
+
+    # the tree scan over the serial merge tree of the data section
+    tree = build_tree(order_n)
+    leaf_keys = tree.keys[tree.is_leaf]
+    lab = seg.ravel()
+    vals = pb1.ravel().astype(np.float64)
+    n_lab = int(lab.max()) + 1
+    mins = np.full(n_lab, np.inf)
+    maxs = np.full(n_lab, -np.inf)
+    np.minimum.at(mins, lab, vals)
+    np.maximum.at(maxs, lab, vals)
+    leaf_stats = {
+        ("add", "sum"): np.bincount(lab, vals, n_lab)[leaf_keys][:, None],
+        ("add", "cnt"): np.bincount(lab, minlength=n_lab)[leaf_keys][
+            :, None].astype(np.float64),
+        ("min", "min"): mins[leaf_keys][:, None],
+        ("max", "max"): maxs[leaf_keys][:, None]}
+    t = time.perf_counter()
+    got = node_region_stats_device(tree, leaf_stats, device=dev)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t
+    want = host_interval_stats(tree, leaf_stats)
+    sums = float(np.max(np.abs(got["sum"].cpu().numpy() - want["sum"])))
+    scan = {"nodes": tree.n_nodes, "leaves": tree.n_leaves,
+            "seconds": scan_s,
+            "sum_max_abs_gap": sums,
+            "sum_largest": float(np.max(np.abs(want["sum"]))),
+            "cnt_min_max_equal": all(np.array_equal(
+                got[k].cpu().numpy(), want[k]) for k in ("cnt", "min",
+                                                         "max"))}
+    if not scan["cnt_min_max_equal"] or sums > 1e-12 * scan["sum_largest"]:
+        failures.append(f"tree scan differs from the host: {scan}")
+    emit({"phase": "slice_merge", "part": "data_section_1024",
+          "serial": serial, "chunked": chunked, "dense_metrics": dense,
+          "tree_scan": scan, "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_merge: {failures}")
+    return paths, shapes
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=1024)
@@ -1543,6 +2000,11 @@ def main(argv=None):
     forest_paths, b1_trained = phase_slice_forest(
         data, seg, dev, forest_inputs, args.seed)
     paths.update(forest_paths)
+    merge_paths, b2_merge = phase_slice_merge(data, seg, rag, dev)
+    paths.update(merge_paths)
+    b2["shapes"] += b2_merge
+    for key in ("max_abs_err", "max_rel_err"):
+        b2[key] = max(r[key] for r in b2["shapes"])
     # one line per kernel: B1's headline numbers are the device_bc batch's,
     # with the engine="device" and engine="host" batches listed beside them
     sub = ("path", "shape", "mismatches", "max_abs_err", "ms",

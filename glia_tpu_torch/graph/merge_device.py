@@ -1,16 +1,27 @@
 """On-device greedy merge by boundary statistic (pb policies), PyTorch.
 
-Counterpart of glia_tpu.graph.merge_device's single-phase fused engine.
-The reference's hot loop is a serial priority queue
-(code/type/boundary_table.hxx:122-167).  Here every superstep runs
-depth-limited Boruvka star/chain contraction over the whole edge list:
-every region selects its minimum incident edge (ties by lowest edge
-index); each component of the selection forest holds exactly one
-mutual-minimum 2-cycle (its root); every vertex within ``dmax`` parent
-hops of its root attaches this superstep, emitted as a chain of binary
-(r0, r1, r2) triples in (statistic, hop) order, so parents attach before
-children; the remaining edges are rekeyed and duplicate pairs are combined
-by one sort and one segment sum.  O(log R) supersteps on typical RAGs.
+Counterpart of glia_tpu.graph.merge_device.  The reference's hot loop is
+a serial priority queue (code/type/boundary_table.hxx:122-167).  Engines:
+
+  - ``merge_serial_device``: that loop on the device, one merge per
+    iteration, the host engine's order and saliencies for the pooled mean.
+  - mode="fused": every superstep runs depth-limited Boruvka star/chain
+    contraction over the whole edge list: every region selects its
+    minimum incident edge (ties by lowest edge index); each component of
+    the selection forest holds exactly one mutual-minimum 2-cycle (its
+    root); every vertex within ``dmax`` parent hops of its root attaches
+    this superstep, emitted as a chain of binary (r0, r1, r2) triples in
+    (statistic, hop) order, so parents attach before children; the
+    remaining edges are rekeyed and duplicate pairs are combined by one
+    sort and one segment sum.  O(log R) supersteps on typical RAGs.
+  - mode="fused_ms": the same supersteps in phases; between phases the
+    live edges and the vertices that still have one move into smaller
+    capacities and a compact local id space (alive counts collapse fast),
+    the order still recorded in global ids.  The capacity plan is
+    measured on the first call per shape and replayed after.
+  - mode="chunked": mutual-minimum matching supersteps (an independent
+    set of edges a superstep), with the live edges compacted on the host's
+    command into power-of-two capacities every few supersteps.
 
 All three of the reference's saliency policies ride the same superstep
 through an additive per-edge payload: (sum, count) for the pooled mean,
@@ -26,8 +37,7 @@ with the RAG's key table (``order_to_keys``).
 The supersteps run as a Python loop with one host read each (the loop
 condition).  Every segment sum goes through ``segment_sum_auto``: the
 hand-written CUDA kernel on the card, ``index_add_`` on the CPU.  Indices
-are int64 tensors.  Not here yet: the serial, chunked and multi-phase
-engines of the reference.
+are int64 tensors.
 """
 
 from __future__ import annotations
@@ -44,18 +54,6 @@ from ..device import (DeviceLike, default_dtype, resolve_device,
 from ..ops.segment_csr import segment_sum_auto
 
 BIG32 = 2 ** 31 - 1
-
-_NOT_PORTED_MODE = (
-    "merge mode {mode!r} is not ported yet (only the single-phase "
-    "mode='fused' is): ROADMAP.md, modules to port, item 5")
-
-
-def _require_fused(mode):
-    if mode in ("fused_ms", "chunked"):
-        raise NotImplementedError(_NOT_PORTED_MODE.format(mode=mode))
-    if mode != "fused":
-        raise ValueError(f"merge mode {mode!r} (fused)")
-
 
 # ---------------------------------------------------------------------------
 # host packing of the RAG
@@ -115,33 +113,37 @@ def _mean_stat_packed(payload):
     return sc[:, 0] / torch.clamp(sc[:, 1], min=1.0)
 
 
+# the statistic functions of the histogram policies, one per (lo, hi) for
+# the life of the process: the multi-phase engine's plan memo is keyed by
+# the function, so a second call with the same range finds its plan
+_HIST_STATS = {}
+_MINSIZE_STATS = {}
+
+
+def _hist_stat(lo, hi):
+    fn = _HIST_STATS.get((lo, hi))
+    if fn is None:
+        def fn(payload):
+            (h,) = payload
+            return hist_median_stat(h, lo, hi)
+        _HIST_STATS[(lo, hi)] = fn
+    return fn
+
+
+def _minsize_stat(lo, hi):
+    fn = _MINSIZE_STATS.get((lo, hi))
+    if fn is None:
+        def fn(payload, uu, vv, vsz):
+            (h,) = payload
+            return hist_median_stat(h, lo, hi) * torch.minimum(vsz[uu],
+                                                               vsz[vv])
+        _MINSIZE_STATS[(lo, hi)] = fn
+    return fn
+
+
 # ---------------------------------------------------------------------------
-# the fused single-phase engine
+# tensor helpers
 # ---------------------------------------------------------------------------
-
-@dataclass
-class _FusedStatic:
-    """Sizes and options of one merge run (fixed over its supersteps)."""
-
-    stat_fn: Callable
-    E: int
-    R: int
-    dmax: int
-    with_vsz: bool
-    # hop count and root of a vertex pack into one integer h*(n_ids+1)+rt
-    # (one gather per hop instead of two), and the emission sort's three
-    # keys into one int64, while (dmax+2)*(n_ids+1) < 2**31; beyond that
-    # both fall back to their unpacked forms
-    pack_hr: bool
-
-    @property
-    def max_m(self) -> int:
-        return max(self.R - 1, 1)
-
-    @property
-    def n_ids(self) -> int:
-        return self.R + self.max_m
-
 
 def _scatter_min_(target, index, src):
     """target[index[i]] = min(target[index[i]], src[i]) in place; the
@@ -169,18 +171,316 @@ def _stat_bits(stat, alive):
     return torch.where(alive, p32.view(torch.int32).long(), BIG32)
 
 
-def fused_superstep(st: _FusedStatic, n_m: int, u, v, payload, vstate,
-                    alive, order, sal):
+def _dedupe(u2, v2, alive2, payload, n_ids):
+    """Combine duplicate pairs of the live edges: a stable sort on the
+    packed (lo, hi) key (a dead edge's ``hi`` is its own index, so it sorts
+    alone), so the first of a run of duplicates is the lowest edge index;
+    then one segment sum over the runs, whose ids are sorted.  Returns
+    (u, v, payload, alive) in the sorted order."""
+    E = u2.shape[0]
+    idx = torch.arange(E, device=u2.device)
+    lo_k = torch.where(alive2, torch.minimum(u2, v2), n_ids)
+    hi_k = torch.where(alive2, torch.maximum(u2, v2), idx)
+    perm = torch.sort(lo_k * (max(n_ids, E) + 1) + hi_k, stable=True).indices
+    alive_s = alive2[perm]
+    pfirst = _first_of_runs(lo_k[perm], hi_k[perm])
+    seg_id = torch.cumsum(pfirst.long(), 0) - 1
+    keep = pfirst & alive_s
+    combined = []
+    for p in payload:
+        ps = p[perm]
+        am = alive_s[:, None] if ps.ndim == 2 else alive_s
+        km = keep[:, None] if ps.ndim == 2 else keep
+        pseg = segment_sum_auto(torch.where(am, ps, 0.0), seg_id, E,
+                                sorted=True)
+        combined.append(torch.where(km, pseg[seg_id], ps))
+    return u2[perm], v2[perm], tuple(combined), alive_s & keep
+
+
+def _as_tensor(a, dev):
+    """``a`` on ``dev``: a tensor as it is, anything else through a numpy
+    copy (arrays handed in may be read-only)."""
+    if torch.is_tensor(a):
+        return a.to(dev)
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+def _as_index(a, dev):
+    return _as_tensor(a, dev).long()
+
+
+def _as_float(a, dev, dtype):
+    return _as_tensor(a, dev).to(dtype)
+
+
+def _order_buffers(max_m, dtype, dev):
+    """The order rows [max_m + 1, 3] (-1 where unrecorded) and saliencies
+    [max_m + 1]; the last row is the dump slot of rows not recorded."""
+    return (torch.full((max_m + 1, 3), -1, dtype=torch.int64, device=dev),
+            torch.zeros(max_m + 1, dtype=dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the exact serial engine
+# ---------------------------------------------------------------------------
+
+# merges between two host reads of the serial engine's loop condition; the
+# iterations after the last merge change nothing
+_SERIAL_READ_EVERY = 64
+
+
+def merge_serial_device(u, v, s, c, n_regions,
+                        dtype: Optional[torch.dtype] = None,
+                        device: DeviceLike = None):
+    """Exact serial greedy mean-policy merge on the device: one merge per
+    iteration (argmin + masked rekey + combine of the merged pair's
+    duplicate boundaries), all fixed-shape vector ops over the edge arrays.
+    Reproduces the host engine's merge order and saliencies for the pooled
+    mean, ties broken by the lowest edge index.
+
+    Every iteration is guarded on the device by its own loop condition
+    (merges left and a live edge), so the host reads that condition only
+    every ``_SERIAL_READ_EVERY`` iterations.  Returns (order [max_m, 3]
+    int64 dense-index triples, rows beyond n_merges -1; saliencies
+    [max_m]; n_merges)."""
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    E = len(u)
+    R = int(n_regions)
+    max_m = max(R - 1, 1)
+    n_ids = R + max_m
+    u = _as_index(u, dev)
+    v = _as_index(v, dev)
+    s = _as_float(s, dev, dt)
+    c = _as_float(c, dev, dt)
+    order, sal = _order_buffers(max_m, dt, dev)
+    if E == 0:
+        return order[:max_m], sal[:max_m], 0
+    idx = torch.arange(E, device=dev)
+    alive = torch.ones(E, dtype=torch.bool, device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    for it in range(max_m):
+        if it and it % _SERIAL_READ_EVERY == 0 and not bool(
+                (i < max_m) & alive.any()):
+            break
+        go = (i < max_m) & alive.any()
+        stat = torch.where(alive, s / torch.clamp(c, min=1.0),
+                           float("inf"))
+        e = torch.argmin(stat)             # the first minimum: lowest index
+        a, b = u[e], v[e]
+        r2 = R + i
+        slot = torch.where(go, i, max_m)
+        order[slot] = torch.stack([a, b, r2])
+        sal[slot] = -stat[e]
+        alive = alive & ~(go & (idx == e))
+        touch = go & alive & ((u == a) | (u == b) | (v == a) | (v == b))
+        u = torch.where(touch & ((u == a) | (u == b)), r2, u)
+        v = torch.where(touch & ((v == a) | (v == b)), r2, v)
+        # the partner is the endpoint that is not r2; the duplicate edges
+        # of a partner combine into its lowest-index edge
+        partner = torch.where(u == r2, v, u)
+        can = torch.full((n_ids,), E, dtype=torch.int64, device=dev)
+        _scatter_min_(can, partner, torch.where(touch, idx, E))
+        is_can = touch & (can[partner] == idx)
+        # before the merge every pair was unique, so a partner has at most
+        # one edge to a and one to b: each sum adds at most two non-zero
+        # values and zeros, which gives the same bits in any order, so the
+        # atomic entry of the segment sum is reproducible here
+        s_tot = segment_sum_auto(torch.where(touch, s, 0.0), partner, n_ids)
+        c_tot = segment_sum_auto(torch.where(touch, c, 0.0), partner, n_ids)
+        s = torch.where(is_can, s_tot[partner], s)
+        c = torch.where(is_can, c_tot[partner], c)
+        alive = alive & (~touch | is_can)
+        i = i + go.long()
+    return order[:max_m], sal[:max_m], int(i)
+
+
+# ---------------------------------------------------------------------------
+# the chunked engine (mutual-minimum matching, host-driven compaction)
+# ---------------------------------------------------------------------------
+
+def _chunk_superstep(stat_fn, R, n_m, u, v, payload, alive, order, sal,
+                     select_rounds):
+    """One superstep of the chunked engine: merge every live edge that is
+    the (index-tiebroken) minimum of both its endpoints' live edges -- a
+    conflict-free independent set -- give the merges fresh ids in edge
+    order, relabel and combine duplicate pairs.  ``select_rounds`` > 1
+    grows the set by further matching rounds over the still-free
+    vertices.  Updates ``order`` / ``sal`` in place; returns (u, v,
+    payload, alive, n_new)."""
+    E = u.shape[0]
+    max_m = max(R - 1, 1)
+    n_ids = R + max_m
+    dev = u.device
+    idx = torch.arange(E, device=dev)
+    stat = torch.where(alive, stat_fn(payload), float("inf"))
+    bits = _stat_bits(stat, alive)
+    is_merge = torch.zeros(E, dtype=torch.bool, device=dev)
+    free = torch.ones(n_ids, dtype=torch.bool, device=dev)
+    for _ in range(select_rounds):
+        eligible = alive & ~is_merge & free[u] & free[v]
+        b = torch.where(eligible, bits, BIG32)
+        rbits = torch.full((n_ids,), BIG32, dtype=torch.int64, device=dev)
+        _scatter_min_(rbits, u, b)
+        _scatter_min_(rbits, v, b)
+        cand = eligible & (rbits[u] == b) & (rbits[v] == b)
+        ridx = torch.full((n_ids,), E, dtype=torch.int64, device=dev)
+        _scatter_min_(ridx, u, torch.where(cand, idx, E))
+        _scatter_min_(ridx, v, torch.where(cand, idx, E))
+        new = cand & (ridx[u] == idx) & (ridx[v] == idx)
+        is_merge = is_merge | new
+        if select_rounds > 1:
+            occ = torch.zeros(n_ids, dtype=torch.int64, device=dev)
+            occ.scatter_reduce_(0, u, new.long(), "amax")
+            occ.scatter_reduce_(0, v, new.long(), "amax")
+            free = free & (occ == 0)
+    # fresh ids in edge order
+    rank = torch.cumsum(is_merge.long(), 0) - 1
+    ok = is_merge & (n_m + rank < max_m)
+    r2 = R + n_m + rank
+    slot = torch.where(ok, n_m + rank, max_m)
+    order[slot] = torch.where(ok[:, None], torch.stack([u, v, r2], dim=1),
+                              -1)
+    sal[slot] = torch.where(ok, -stat, 0.0).to(sal.dtype)
+    # relabel through a lut over region ids (sentinel slot n_ids)
+    lut = torch.arange(n_ids + 1, device=dev)
+    lut[torch.where(ok, u, n_ids)] = torch.where(ok, r2, n_ids)
+    lut[torch.where(ok, v, n_ids)] = torch.where(ok, r2, n_ids)
+    u2 = lut[u]
+    v2 = lut[v]
+    alive2 = alive & ~ok & (u2 != v2)
+    u3, v3, payload, alive3 = _dedupe(u2, v2, alive2, payload, n_ids)
+    return u3, v3, payload, alive3, ok.sum()
+
+
+def _superstep_merge_core(u, v, payload, stat_fn, n_regions,
+                          max_supersteps, dtype, device, select_rounds=1,
+                          chunk=6, stats=None):
+    """The chunked batched merge: supersteps of ``_chunk_superstep`` in
+    pieces of ``chunk``; between pieces the live edges are compacted, a
+    stable partition to the front, into the next power-of-two capacity
+    (at least 256), so the tail supersteps run on small arrays.  The loop
+    condition is read on the host after every superstep.
+
+    Returns (order [max_m, 3] int64, saliencies = -stat, n_merges)."""
+    E = len(u)
+    R = int(n_regions)
+    max_m = max(R - 1, 1)
+    u_d = _as_index(u, device)
+    v_d = _as_index(v, device)
+    payload_d = tuple(_as_float(p, device, dtype) for p in payload)
+    alive = torch.ones(E, dtype=torch.bool, device=device)
+    order, sal = _order_buffers(max_m, dtype, device)
+    n_m, total_steps, any_alive = 0, 0, E > 0
+    cap = E
+    buckets = [E]
+    while total_steps < max_supersteps:
+        steps = min(chunk, max_supersteps - total_steps)
+        done = 0
+        while done < steps and any_alive and n_m < max_m:
+            u_d, v_d, payload_d, alive, n_new = _chunk_superstep(
+                stat_fn, R, n_m, u_d, v_d, payload_d, alive, order, sal,
+                select_rounds)
+            done += 1
+            n_new_h, any_alive = torch.stack(
+                [n_new, alive.any().long()]).tolist()
+            n_m = min(n_m + n_new_h, max_m)
+        total_steps += done
+        if n_m >= max_m:
+            break
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            break
+        new_cap = max(256, 1 << int(np.ceil(np.log2(max(n_alive, 1)))))
+        if new_cap < cap:
+            perm = torch.sort((~alive).to(torch.uint8),
+                              stable=True).indices[:new_cap]
+            u_d, v_d, alive = u_d[perm], v_d[perm], alive[perm]
+            payload_d = tuple(p[perm] for p in payload_d)
+            cap = new_cap
+            buckets.append(cap)
+    if stats is not None:
+        stats["n_supersteps"] = total_steps
+        stats["buckets"] = buckets
+    return order[:max_m], sal[:max_m], n_m
+
+
+# ---------------------------------------------------------------------------
+# the fused engine: single-phase, and multi-phase over shrinking capacities
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _FusedStatic:
+    """Sizes and options of one phase of the fused engine (fixed over its
+    supersteps).  A phase runs in a local id space: ``E`` edge rows,
+    ``R`` local regions and fresh local ids from R on; it records order
+    rows in global ids, region x < R as ``g_of[x]`` and fresh local
+    R + t as ``R_glob + n_m_base + t`` (both spaces allocate fresh ids
+    contiguously in merge order; ``n_m_base`` is the number of merges
+    recorded before the phase).  The single-phase engine is the phase
+    whose map is the identity (``g_of`` None)."""
+
+    stat_fn: Callable
+    E: int
+    R: int
+    dmax: int
+    with_vsz: bool
+    # hop count and root of a vertex pack into one integer h*(n_ids+1)+rt
+    # (one gather per hop instead of two), and the emission sort's three
+    # keys into one int64, while (dmax+2)*(n_ids+1) < 2**31; beyond that
+    # both fall back to their unpacked forms
+    pack_hr: bool
+    R_glob: int
+
+    @property
+    def max_m(self) -> int:
+        return max(self.R - 1, 1)
+
+    @property
+    def n_ids(self) -> int:
+        return self.R + self.max_m
+
+    @property
+    def max_m_glob(self) -> int:
+        return max(self.R_glob - 1, 1)
+
+
+def _phase_static(stat_fn, E, R_loc, R_glob, dmax, with_vsz,
+                  pack_hr=None):
+    """The _FusedStatic of a phase; ``pack_hr=False`` forces the unpacked
+    hop and sort forms that ids beyond the packing bound take (tests)."""
+    n_ids = R_loc + max(R_loc - 1, 1)
+    fits = (int(dmax) + 2) * (n_ids + 1) < 2 ** 31
+    return _FusedStatic(stat_fn=stat_fn, E=E, R=R_loc, dmax=int(dmax),
+                        with_vsz=with_vsz,
+                        pack_hr=fits and pack_hr is not False,
+                        R_glob=R_glob)
+
+
+def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
+                    alive, order, sal, n_m_base: int = 0, g_of=None):
     """One superstep of the fused engine, a plain function on tensors.
 
-    ``n_m`` merges are recorded so far; ``order`` [max_m + 1, 3] and
-    ``sal`` [max_m + 1] are updated in place (their last row is the dump
-    slot of rows not recorded).  Returns (u, v, payload, vstate, alive,
-    n_new) with ``n_new`` the number of merges recorded, as a tensor."""
+    ``n_loc`` merges are recorded so far in this phase, ``n_m_base``
+    before it; ``order`` [max_m_glob + 1, 3] and ``sal`` [max_m_glob + 1]
+    are updated in place (their last row is the dump slot of rows not
+    recorded).  ``g_of`` [R]: the global id of each local region (None
+    for the identity).  Returns (u, v, payload, vstate, alive, n_new) with
+    ``n_new`` the number of merges recorded, as a tensor."""
     E, R, dmax, max_m, n_ids = st.E, st.R, st.dmax, st.max_m, st.n_ids
+    max_m_glob = st.max_m_glob
+    # the global id of this phase's first fresh local id, at its start
+    Rb = st.R_glob + n_m_base
     dev = u.device
     idx = torch.arange(E, device=dev)
     vid = torch.arange(n_ids, device=dev)
+
+    def gfun(x):
+        if g_of is None:
+            return x
+        return torch.where(x < R, g_of[torch.clamp(x, 0, R - 1)],
+                           Rb + (x - R))
+
     if st.with_vsz:
         stat = st.stat_fn(payload, u, v, vstate[0])
     else:
@@ -257,9 +557,11 @@ def fused_superstep(st: _FusedStatic, n_m: int, u, v, payload, vstate,
     first = _first_of_runs(rt_s)
     true1 = torch.ones(1, dtype=torch.bool, device=dev)
     first_in_run = is_merge & (torch.cat([true1, ~is_merge[:-1]]) | first)
-    r2 = R + n_m + grank
-    r0 = torch.where(first_in_run, rt_s, r2 - 1)
-    ok = is_merge & (n_m + grank < max_m)
+    r2 = Rb + n_loc + grank                              # global ids
+    r0 = torch.where(first_in_run, gfun(rt_s), r2 - 1)
+    # two bounds: the phase's local id space and the global order buffer
+    ok = (is_merge & (n_loc + grank < max_m)
+          & (n_m_base + n_loc + grank < max_m_glob))
     n_new = ok.sum()
 
     # saliency: the attached vertex's own selected edge's statistic
@@ -267,25 +569,25 @@ def fused_superstep(st: _FusedStatic, n_m: int, u, v, payload, vstate,
     stat_pad = torch.cat([stat, stat.new_zeros(1)])
     sal_rows = -stat_pad[m_s]
 
-    # rows not recorded all write the same values to the dump slot max_m
-    slot = torch.where(ok, n_m + grank, max_m)
-    rows = torch.stack([r0, vs, r2], dim=1)
+    # rows not recorded all write the same values to the dump slot
+    slot = torch.where(ok, n_m_base + n_loc + grank, max_m_glob)
+    rows = torch.stack([r0, gfun(vs), r2], dim=1)
     order[slot] = torch.where(ok[:, None], rows, -1)
     sal[slot] = torch.where(ok, sal_rows.to(sal.dtype), 0.0)
 
-    # --- component final id lut (last merge of each run) ---
+    # --- component final id lut (last merge of each run), local ids ---
     run_id = torch.cumsum(first.long(), 0) - 1
     last_rank = torch.full((n_ids + 1,), -1, dtype=torch.int64, device=dev)
     last_rank.scatter_reduce_(0, run_id, torch.where(ok, grank, -1), "amax",
                               include_self=True)
     last = last_rank[run_id]
-    fin = R + n_m + last
+    fin = R + n_loc + last
     # only vertices whose own attach was RECORDED (ok is a prefix of the
     # global merge ranks, hence of each run's hop-ordered chain) plus the
     # run root are contracted; overflowed attaches stay put
     contracted = (rt_s < n_ids) & (last >= 0) & (ok | (h_s == 0))
     # (id n_ids-1 is a safe dump slot: ids allocated so far are
-    # < R + n_m < n_ids - 1 while the loop still runs)
+    # < R + n_loc < n_ids - 1 while the loop still runs)
     lut = vid.clone()
     lut[torch.where(contracted, vs, n_ids - 1)] = torch.where(
         contracted, fin, n_ids - 1)
@@ -296,49 +598,45 @@ def fused_superstep(st: _FusedStatic, n_m: int, u, v, payload, vstate,
     u2 = lut[u]
     v2 = lut[v]
     alive2 = alive & ~used[:E] & (u2 != v2)
-
-    # --- dedupe duplicate pairs: a stable sort on the packed (lo, hi)
-    # key, so the first of a run of duplicates is the lowest edge index;
-    # then one segment sum over the runs, whose ids are sorted ---
-    lo_k = torch.where(alive2, torch.minimum(u2, v2), n_ids)
-    hi_k = torch.where(alive2, torch.maximum(u2, v2), idx)
-    perm = torch.sort(lo_k * (max(n_ids, E) + 1) + hi_k,
-                      stable=True).indices
-    u3 = u2[perm]
-    v3 = v2[perm]
-    alive_s = alive2[perm]
-    pfirst = _first_of_runs(lo_k[perm], hi_k[perm])
-    seg_id = torch.cumsum(pfirst.long(), 0) - 1
-    keep = pfirst & alive_s
-    combined = []
-    for p in payload:
-        ps = p[perm]
-        am = alive_s[:, None] if ps.ndim == 2 else alive_s
-        km = keep[:, None] if ps.ndim == 2 else keep
-        pseg = segment_sum_auto(torch.where(am, ps, 0.0), seg_id, E,
-                                sorted=True)
-        combined.append(torch.where(km, pseg[seg_id], ps))
+    u3, v3, combined, alive3 = _dedupe(u2, v2, alive2, payload, n_ids)
     if st.with_vsz:
         # vertex payload (region sizes) pools additively through the
         # component lut: one segment sum per superstep
         vstate = tuple(segment_sum_auto(z, lut, n_ids) for z in vstate)
-    return u3, v3, tuple(combined), vstate, alive_s & keep, n_new
+    return u3, v3, combined, vstate, alive3, n_new
 
 
-def _as_tensor(a, dev):
-    """``a`` on ``dev``: a tensor as it is, anything else through a numpy
-    copy (arrays handed in may be read-only)."""
-    if torch.is_tensor(a):
-        return a.to(dev)
-    return torch.tensor(np.asarray(a), device=dev)
+def _run_phase(st, u, v, payload, vstate, alive, any_alive, order, sal,
+               max_steps, n_m_base=0, g_of=None):
+    """Supersteps of one phase until ``max_steps``, no live edge, or no
+    merge left in the local or the global id space.  ``any_alive``: the
+    host's knowledge that ``alive`` has a live edge.  The one host read of
+    a superstep is the loop condition.  Returns (u, v, payload, vstate,
+    alive, any_alive, merges recorded, supersteps)."""
+    n_loc, steps = 0, 0
+    while (steps < max_steps and any_alive and n_loc < st.max_m
+           and n_m_base + n_loc < st.max_m_glob):
+        u, v, payload, vstate, alive, n_new = fused_superstep(
+            st, n_loc, u, v, payload, vstate, alive, order, sal,
+            n_m_base=n_m_base, g_of=g_of)
+        steps += 1
+        n_new_h, any_alive = torch.stack(
+            [n_new, alive.any().long()]).tolist()
+        n_loc += n_new_h
+    return u, v, payload, vstate, alive, bool(any_alive), n_loc, steps
 
 
-def _as_index(a, dev):
-    return _as_tensor(a, dev).long()
-
-
-def _as_float(a, dev, dtype):
-    return _as_tensor(a, dev).to(dtype)
+def _initial_state(u, v, payload, vsizes, R, dtype, device):
+    """Edge arrays, payloads and vertex state of a fused run on ``device``:
+    vsizes (optional [R]) becomes the vertex payload [R + max_m]."""
+    max_m = max(R - 1, 1)
+    vstate = ()
+    if vsizes is not None:
+        vsz = torch.zeros(R + max_m, dtype=dtype, device=device)
+        vsz[:R] = _as_float(vsizes, device, dtype)
+        vstate = (vsz,)
+    return (_as_index(u, device), _as_index(v, device),
+            tuple(_as_float(p, device, dtype) for p in payload), vstate)
 
 
 def _fused_merge_core(u, v, payload, stat_fn, n_regions, max_supersteps,
@@ -357,80 +655,273 @@ def _fused_merge_core(u, v, payload, stat_fn, n_regions, max_supersteps,
     E = len(u)
     R = int(n_regions)
     max_m = max(R - 1, 1)
-    n_ids = R + max_m
-    fits = (int(dmax) + 2) * (n_ids + 1) < 2 ** 31
-    st = _FusedStatic(stat_fn=stat_fn, E=E, R=R, dmax=int(dmax),
-                      with_vsz=vsizes is not None,
-                      pack_hr=fits and pack_hr is not False)
-    u_d = _as_index(u, device)
-    v_d = _as_index(v, device)
-    payload_d = tuple(_as_float(p, device, dtype) for p in payload)
-    vstate = ()
-    if st.with_vsz:
-        vsz = torch.zeros(n_ids, dtype=dtype, device=device)
-        vsz[:R] = _as_float(vsizes, device, dtype)
-        vstate = (vsz,)
+    st = _phase_static(stat_fn, E, R, R, dmax, vsizes is not None,
+                       pack_hr=pack_hr)
+    u_d, v_d, payload_d, vstate = _initial_state(u, v, payload, vsizes, R,
+                                                 dtype, device)
     alive = torch.ones(E, dtype=torch.bool, device=device)
-    order = torch.full((max_m + 1, 3), -1, dtype=torch.int64, device=device)
-    sal = torch.zeros(max_m + 1, dtype=dtype, device=device)
-    n_m, steps, any_alive = 0, 0, E > 0
-    while steps < max_supersteps and any_alive and n_m < max_m:
-        u_d, v_d, payload_d, vstate, alive, n_new = fused_superstep(
-            st, n_m, u_d, v_d, payload_d, vstate, alive, order, sal)
-        steps += 1
-        # the one host read of the superstep: the loop condition
-        n_new_h, any_alive = torch.stack(
-            [n_new, alive.any().long()]).tolist()
-        n_m += n_new_h
+    order, sal = _order_buffers(max_m, dtype, device)
+    *_, n_m, steps = _run_phase(st, u_d, v_d, payload_d, vstate, alive,
+                                E > 0, order, sal, max_supersteps)
     if stats is not None:
         stats["n_supersteps"] = steps
         stats["buckets"] = [E]
     return order[:max_m], sal[:max_m], n_m
 
 
+def _phase_transition(u, v, payload, vstate, alive, g_of_prev,
+                      n_m_base_prev, R_loc_prev, R_glob, E2, R2_cap):
+    """Between two phases: compact the live edges into ``E2`` rows (in
+    order) and remap the vertices that still have a live edge into
+    [0, R2_cap) (in order), composing the local -> global id table; the
+    vertex payload follows the remap.  Never drops data: returns an
+    overflow flag (a tensor) instead, and the caller falls back.
+    Returns (u, v, payload, vstate, alive, g_of, overflow)."""
+    dev = u.device
+    n_vert_prev = R_loc_prev + max(R_loc_prev - 1, 1)
+    lid = torch.arange(n_vert_prev, device=dev)
+    # fresh locals of the previous phase map with the base at its start
+    Rb = R_glob + n_m_base_prev
+    gl = torch.where(lid < R_loc_prev,
+                     g_of_prev[torch.clamp(lid, 0, R_loc_prev - 1)],
+                     Rb + (lid - R_loc_prev))
+    # present: an endpoint of a live edge (slot n_vert_prev is a dump)
+    pres = torch.zeros(n_vert_prev + 1, dtype=torch.bool, device=dev)
+    pres[torch.where(alive, u, n_vert_prev)] = True
+    pres[torch.where(alive, v, n_vert_prev)] = True
+    pres = pres[:n_vert_prev]
+    new_id = torch.cumsum(pres.long(), 0) - 1
+    ovf_v = pres.sum() > R2_cap
+    g2 = torch.zeros(R2_cap + 1, dtype=torch.int64, device=dev)
+    g2[torch.where(pres, torch.clamp(new_id, 0, R2_cap - 1), R2_cap)] = \
+        torch.where(pres, gl, 0)
+    rank = torch.cumsum(alive.long(), 0) - 1
+    ovf_e = alive.sum() > E2
+    sl = torch.where(alive, torch.clamp(rank, 0, E2 - 1), E2)
+
+    def compact(x, fill):
+        buf = x.new_full((E2 + 1,) + tuple(x.shape[1:]), fill)
+        am = alive[:, None] if x.ndim == 2 else alive
+        buf[sl] = torch.where(am, x, fill)
+        return buf[:E2]
+
+    # after an overflow the ids are only kept in bounds: the run is
+    # thrown away and the caller falls back
+    new_id_in = torch.clamp(new_id, 0, R2_cap - 1)
+    u2 = compact(new_id_in[u], 0)
+    v2 = compact(new_id_in[v], 0)
+    a2 = compact(alive, False)
+    p2 = tuple(compact(p, 0.0) for p in payload)
+    n_vert2 = R2_cap + max(R2_cap - 1, 1)
+    vsl = torch.where(pres, torch.clamp(new_id, 0, n_vert2 - 1), n_vert2)
+    vstate2 = []
+    for z in vstate:
+        buf = z.new_zeros(n_vert2 + 1)
+        buf[vsl] = torch.where(pres, z[:n_vert_prev], 0.0)
+        vstate2.append(buf[:n_vert2])
+    return u2, v2, p2, tuple(vstate2), a2, g2[:R2_cap], ovf_v | ovf_e
+
+
+def _tile_ceil(x, lo=256, tile=256):
+    """Round a phase capacity up to a multiple of ``tile``, at least
+    ``lo`` (capacities need not be powers of two)."""
+    return max(lo, ((max(int(x), 1) + tile - 1) // tile) * tile)
+
+
+def _cap_quantize(x, lo=256, tile=256):
+    """Round a measured capacity UP to ~1/8-of-pow2 steps (tile-aligned):
+    at most 8 distinct capacities per power-of-two bucket while staying
+    within 12.5% of the measured need."""
+    x = max(int(x), 1)
+    step = max((1 << max(x.bit_length() - 1, 0)) // 8, tile)
+    return max(lo, ((x + step - 1) // step) * step)
+
+
+# realized multi-phase plans [(steps | None, E_cap, R_cap)] by (E, R,
+# statistic, payload layout, dmax, dtype, vertex payload), for the life of
+# the process; a memoized plan replays without reading alive counts
+_PLAN_MEMO = {}
+
+
+def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
+                           max_supersteps, dtype, device, dmax=4, plan=None,
+                           stats=None, vsizes=None):
+    """Multi-phase fused merge: full-capacity supersteps first, then
+    transitions into smaller edge and vertex capacities for the tail
+    (alive counts roughly halve per superstep).  Same selection rule and
+    chain emission as the single-phase engine, each phase in its own
+    compact id space.
+
+    plan=None is adaptive: the first call on an (E, R, policy) shape runs
+    1-step phases while the phase index is below 2, then 2-step phases, a
+    phase being the last one once its edge capacity is at most 4096 or it
+    is the seventh; after each non-last phase it reads the alive count,
+    and the next phase's edge capacity is the quantized count, its vertex
+    capacity the quantized min(2 * alive, current).  A frontier that does
+    not shrink makes the next phase the last.  The realized plan is
+    memoized per shape, and later calls replay it.  An explicit plan is a
+    list of (steps, edge_cap, vert_cap), caps as fractions of E / R
+    (<= 1.0) or absolute rows; its last entry runs to completion.  A
+    capacity overflow or an unfinished frontier falls back to the
+    single-phase engine and drops the memo entry (``stats["fallback"]``).
+    """
+    E = len(u)
+    R = int(n_regions)
+    max_m = max(R - 1, 1)
+    with_vsz = vsizes is not None
+    u_d, v_d, payload_d, vstate = _initial_state(u, v, payload, vsizes, R,
+                                                 dtype, device)
+    struct = tuple((p.ndim, str(p.dtype)) for p in payload_d)
+    memo_key = (E, R, stat_fn, struct, dmax, str(dtype), with_vsz)
+    if plan is not None:
+        entries = []
+        for i, (steps, ef, vf) in enumerate(plan):
+            Ei = E if i == 0 else _tile_ceil(E * ef if ef <= 1.0 else ef)
+            Ri = R if i == 0 else _tile_ceil(R * vf if vf <= 1.0 else vf,
+                                             lo=128, tile=128)
+            entries.append((steps, Ei, Ri))
+    else:
+        entries = _PLAN_MEMO.get(memo_key)
+    adaptive = entries is None
+
+    alive = torch.ones(E, dtype=torch.bool, device=device)
+    any_alive = E > 0
+    order, sal = _order_buffers(max_m, dtype, device)
+    g_of = torch.arange(R, device=device)
+    E_cur, R_cur = E, R
+    n_base, total_steps = 0, 0
+    ovf_any = torch.zeros((), dtype=torch.bool, device=device)
+    realized = []
+    force_final = False
+    pi = 0
+    while True:
+        if not adaptive:
+            steps = entries[pi][0]
+            last = pi == len(entries) - 1
+        else:
+            last = force_final or E_cur <= 4096 or pi >= 6
+            steps = None if last else (1 if pi < 2 else 2)
+        steps_k = max_supersteps if steps is None or last else steps
+        st = _phase_static(stat_fn, E_cur, R_cur, R, dmax, with_vsz)
+        # fresh locals of this phase map with the base at its start; the
+        # following transition composes the id table with the same value.
+        # The first phase maps by the identity (a later one without a
+        # transition before it maps by the table, as in glia_tpu)
+        base_start = n_base
+        u_d, v_d, payload_d, vstate, alive, any_alive, n_loc, done = \
+            _run_phase(st, u_d, v_d, payload_d, vstate, alive, any_alive,
+                       order, sal, steps_k, n_m_base=base_start,
+                       g_of=None if pi == 0 else g_of)
+        n_base = base_start + n_loc
+        total_steps += done
+        realized.append((None if last else steps, E_cur, R_cur))
+        if last:
+            break
+        if not adaptive:
+            E2, R2_cap = entries[pi + 1][1], entries[pi + 1][2]
+        else:
+            n_alive = int(alive.sum())
+            if n_alive == 0:
+                realized[-1] = (None, E_cur, R_cur)
+                break
+            E2 = _cap_quantize(n_alive)
+            R2_cap = _cap_quantize(min(2 * n_alive, R_cur), lo=128,
+                                   tile=128)
+            if E2 >= E_cur:
+                # frontier not shrinking: finish at the current capacity
+                force_final = True
+                pi += 1
+                continue
+        u_d, v_d, payload_d, vstate, alive, g_of, ovf = _phase_transition(
+            u_d, v_d, payload_d, vstate, alive, g_of, base_start, R_cur, R,
+            E2, R2_cap)
+        ovf_any = ovf_any | ovf
+        E_cur, R_cur = E2, R2_cap
+        pi += 1
+
+    if bool(ovf_any | alive.any()):
+        # capacity plan too tight for this RAG: the single-phase engine
+        # (slower, never wrong); drop a stale memo so the next call
+        # measures again
+        _PLAN_MEMO.pop(memo_key, None)
+        if stats is not None:
+            stats["fallback"] = True
+        return _fused_merge_core(u, v, payload, stat_fn, n_regions,
+                                 max_supersteps, dtype, device, dmax=dmax,
+                                 stats=stats, vsizes=vsizes)
+    if adaptive:
+        _PLAN_MEMO[memo_key] = realized
+    if stats is not None:
+        stats["n_supersteps"] = total_steps
+        stats["buckets"] = [e for _, e, _ in realized]
+        stats["fallback"] = False
+    return order[:max_m], sal[:max_m], n_base
+
+
+MODES = ("fused", "fused_ms", "chunked")
+
+
+def _check_mode(mode, modes=MODES):
+    if mode not in modes:
+        raise ValueError(f"merge mode {mode!r} ({'|'.join(modes)})")
+
+
 def merge_batched_device(u, v, s, c, n_regions, max_supersteps=256,
-                         dtype: Optional[torch.dtype] = None, stats=None,
-                         mode="fused", dmax=4, device: DeviceLike = None):
+                         dtype: Optional[torch.dtype] = None,
+                         select_rounds=1, stats=None, mode="fused", dmax=4,
+                         device: DeviceLike = None):
     """Batched superstep merge, pooled-mean policy.
 
     Per-edge data (s, c) = (sum, count) of boundary pb; statistic = s/c
     (util/struct_merge.hxx:38-85 semantics under splice-as-sum).
     ``mode="fused"`` runs depth-``dmax`` chain contraction per superstep
-    at full edge capacity; the reference's other modes are not ported.
+    at full edge capacity; ``"fused_ms"`` adds capacity-shrinking tail
+    phases to it (the default of greedy_merge_device); ``"chunked"`` is
+    the mutual-matching engine with host-driven compaction
+    (``select_rounds`` matching rounds a superstep).
     Returns (order, saliencies, n_merges)."""
-    _require_fused(mode)
+    _check_mode(mode)
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
     sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)], dim=1)
-    return _fused_merge_core(u, v, (sc,), _mean_stat_packed, n_regions,
-                             max_supersteps, dt, dev, dmax=dmax, stats=stats)
+    if mode == "chunked":
+        return _superstep_merge_core(u, v, (sc,), _mean_stat_packed,
+                                     n_regions, max_supersteps, dt, dev,
+                                     select_rounds=select_rounds,
+                                     stats=stats)
+    core = _fused_multiphase_core if mode == "fused_ms" else _fused_merge_core
+    return core(u, v, (sc,), _mean_stat_packed, n_regions, max_supersteps,
+                dt, dev, dmax=dmax, stats=stats)
 
 
 def merge_batched_device_hist(u, v, h, n_regions, max_supersteps=256,
                               lo=0.0, hi=1.0,
                               dtype: Optional[torch.dtype] = None,
-                              stats=None, mode="fused", dmax=4,
-                              device: DeviceLike = None):
+                              select_rounds=1, stats=None, mode="fused",
+                              dmax=4, device: DeviceLike = None):
     """Batched superstep merge on histogram sketches (approx-median
     policy).  h: [E, n_bins] per-edge boundary histograms, which splice
-    additively; the statistic is the sketch's upper median.
+    additively; the statistic is the sketch's upper median.  ``mode`` as
+    in merge_batched_device.
     Returns (order, saliencies=-stat, n_merges)."""
-    _require_fused(mode)
+    _check_mode(mode)
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
-
-    def stat_fn(payload):
-        (hh,) = payload
-        return hist_median_stat(hh, lo, hi)
-
-    return _fused_merge_core(u, v, (h,), stat_fn, n_regions, max_supersteps,
-                             dt, dev, dmax=dmax, stats=stats)
+    stat_fn = _hist_stat(lo, hi)
+    if mode == "chunked":
+        return _superstep_merge_core(u, v, (h,), stat_fn, n_regions,
+                                     max_supersteps, dt, dev,
+                                     select_rounds=select_rounds,
+                                     stats=stats)
+    core = _fused_multiphase_core if mode == "fused_ms" else _fused_merge_core
+    return core(u, v, (h,), stat_fn, n_regions, max_supersteps, dt, dev,
+                dmax=dmax, stats=stats)
 
 
 def merge_batched_device_hist_minsize(u, v, h, sizes, n_regions,
                                       max_supersteps=256, lo=0.0, hi=1.0,
                                       dtype: Optional[torch.dtype] = None,
-                                      stats=None, mode="fused", dmax=4,
+                                      stats=None, mode="fused_ms", dmax=4,
                                       device: DeviceLike = None):
     """Batched superstep merge, median * minsize policy
     (util/struct_merge.hxx:141-185): statistic = (approx) boundary median
@@ -438,17 +929,17 @@ def merge_batched_device_hist_minsize(u, v, h, sizes, n_regions,
     region's size -- sizes ride as an additive per-VERTEX payload pooled
     through the component lut each superstep (start-of-superstep values,
     like every other statistic input).  sizes: [R] leaf region sizes.
-    Returns (order, saliencies=-stat, n_merges)."""
-    _require_fused(mode)
+    ``mode``: "fused_ms" or "fused" (the chunked engine has no vertex
+    payload).  Returns (order, saliencies=-stat, n_merges)."""
+    if mode not in ("fused", "fused_ms"):
+        raise ValueError(f"median_minsize device mode {mode!r} "
+                         "(fused|fused_ms)")
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
-
-    def stat_fn(payload, uu, vv, vsz):
-        (hh,) = payload
-        return hist_median_stat(hh, lo, hi) * torch.minimum(vsz[uu], vsz[vv])
-
-    return _fused_merge_core(u, v, (h,), stat_fn, n_regions, max_supersteps,
-                             dt, dev, dmax=dmax, stats=stats, vsizes=sizes)
+    core = _fused_multiphase_core if mode == "fused_ms" else _fused_merge_core
+    return core(u, v, (h,), _minsize_stat(lo, hi), n_regions,
+                max_supersteps, dt, dev, dmax=dmax, stats=stats,
+                vsizes=sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -576,22 +1067,11 @@ def exact_saliency_device(u, v, s, c, order, n_regions,
     return stat
 
 
-def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
-                               max_supersteps=256,
-                               dtype: Optional[torch.dtype] = None,
-                               stats=None, device: DeviceLike = None):
-    """Pooled-mean merge and the exact merge-time saliencies, both on the
-    device with the order never leaving it: the merge, then the LCA-keyed
-    segment sums over its order buffer, then the exact value wherever it
-    is defined.
-
-    Returns (order [max_m, 3] dense triples, saliencies with exact
-    merge-time pooled means where defined, n_merges).  ``stats``, when
-    passed, also receives the wall seconds of the two stages
-    (t_merge_loop, t_exact_saliency)."""
-    dev = resolve_device(device)
-    dt = default_dtype(dev, dtype)
-    st = stats if stats is not None else {}
+def _merge_exact(u, v, s, c, n_regions, mode, dmax, max_supersteps, dt,
+                 st, dev):
+    """Pooled-mean merge in ``mode`` and the exact merge-time saliencies
+    over its order buffer, both on ``dev``; ``st`` receives the engine's
+    counters and the wall seconds of the two stages."""
     u_d = _as_index(u, dev)
     v_d = _as_index(v, dev)
     s_d = _as_float(s, dev, dt)
@@ -599,7 +1079,8 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
     t0 = time.perf_counter()
     order, sal, n_m = merge_batched_device(
         u_d, v_d, s_d, c_d, n_regions, dmax=dmax,
-        max_supersteps=max_supersteps, dtype=dt, stats=st, device=dev)
+        max_supersteps=max_supersteps, dtype=dt, stats=st, mode=mode,
+        device=dev)
     synchronize(dev)
     t1 = time.perf_counter()
     ex = exact_saliency_device(u_d, v_d, s_d, c_d, order, n_regions,
@@ -609,6 +1090,27 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
     st["t_merge_loop"] = t1 - t0
     st["t_exact_saliency"] = time.perf_counter() - t1
     return order, sal, n_m
+
+
+def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
+                               max_supersteps=256,
+                               dtype: Optional[torch.dtype] = None,
+                               stats=None, device: DeviceLike = None):
+    """Pooled-mean multi-phase merge (mode="fused_ms") and the exact
+    merge-time saliencies, both on the device with the order never leaving
+    it: the merge, then the LCA-keyed segment sums over its order buffer,
+    then the exact value wherever it is defined.
+
+    Returns (order [max_m, 3] dense triples, saliencies with exact
+    merge-time pooled means where defined, n_merges).  ``stats``, when
+    passed, receives the engine's counters (n_supersteps, buckets,
+    fallback, sal_L) and the wall seconds of the two stages
+    (t_merge_loop, t_exact_saliency)."""
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    st = stats if stats is not None else {}
+    return _merge_exact(u, v, s, c, n_regions, "fused_ms", dmax,
+                        max_supersteps, dt, st, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -811,7 +1313,7 @@ def order_to_keys(order, n_merges, rag):
 
 
 def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
-                        mode="fused", dmax=4, stats=None,
+                        mode="fused_ms", dmax=4, stats=None,
                         exact_saliency=True, saliency_engine="device",
                         device: DeviceLike = None,
                         dtype: Optional[torch.dtype] = None):
@@ -827,8 +1329,9 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
     struct_merge.hxx:141-185; sizes pooled as an additive vertex
     payload) -- all three of the reference's saliency policies.
 
-    mode: "fused", the single-phase engine.  The reference's "fused_ms"
-    and "chunked" are not ported and raise NotImplementedError.
+    mode: "fused_ms" (default; the multi-phase fused engine, falling back
+    to the single-phase one by itself when the RAG overflows its capacity
+    plan), "fused" or "chunked" (not for median_minsize).
 
     exact_saliency (default True): replace the engine's
     start-of-superstep saliencies with the exact merge-time statistics,
@@ -839,10 +1342,11 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
     the host (medians are not additive).
 
     ``device`` defaults to the CUDA card and raises without one.  A
-    ``stats`` dict receives n_supersteps and the wall seconds of the
-    stages (t_merge_loop, t_exact_saliency).
+    ``stats`` dict receives the engine's counters (n_supersteps, buckets;
+    fallback for "fused_ms") and the wall seconds of the stages
+    (t_merge_loop, t_exact_saliency).
     Returns (order [n, 3] int64 label keys, saliencies [n] float64)."""
-    _require_fused(mode)
+    _check_mode(mode)
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
     st = stats if stats is not None else {}
@@ -865,9 +1369,8 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
     if policy == "mean":
         u, v, s, c = edge_mean_arrays(rag, pb_image)
         if exact_saliency and saliency_engine == "device":
-            order, sal, n_m = merge_batched_device_exact(
-                u, v, s, c, rag.n_regions, dmax=dmax, stats=st, device=dev,
-                dtype=dt)
+            order, sal, n_m = _merge_exact(u, v, s, c, rag.n_regions, mode,
+                                           dmax, 256, dt, st, dev)
             sal = sal[:n_m].double().cpu().numpy()
             return order_to_keys(order, n_m, rag), sal
         order, sal, n_m = timed_merge(merge_batched_device, u, v, s, c)

@@ -38,6 +38,10 @@ class MergeTree:
         return self.left < 0
 
     @property
+    def n_leaves(self) -> int:
+        return int(self.is_leaf.sum())
+
+    @property
     def root(self) -> int:
         # tree.hxx root() = node with parent < 0; creation order puts it last
         return self.n_nodes - 1
@@ -73,6 +77,16 @@ class MergeTree:
                 stack.append(int(self.right[j]))
                 stack.append(int(self.left[j]))
         return out
+
+
+    def depth_vector(self) -> np.ndarray:
+        """Depth (root = 0) per node; backward scan works since parent > child."""
+        d = np.zeros(self.n_nodes, dtype=np.int32)
+        for i in range(self.n_nodes - 2, -1, -1):
+            p = self.parent[i]
+            if p >= 0:
+                d[i] = d[p] + 1
+        return d
 
 
 def build_tree(order) -> MergeTree:

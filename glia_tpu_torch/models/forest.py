@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -38,6 +38,9 @@ class ForestModel:
     n_classes: int
     max_depth: int
     classes: np.ndarray     # original class labels [n_classes]
+    # the width of the samples the forest was trained on; None for a
+    # forest carried over without it (then only its splits are checked)
+    n_features: Optional[int] = None
 
     @property
     def n_trees(self) -> int:
@@ -45,9 +48,11 @@ class ForestModel:
 
     @classmethod
     def from_arrays(cls, feature, threshold, left, right, leaf_class,
-                    n_classes, max_depth, classes) -> "ForestModel":
+                    n_classes, max_depth, classes,
+                    n_features=None) -> "ForestModel":
         """Build from node arrays [T, N] (glia_tpu's ForestModel fields),
-        casting each to the dtype the walks use."""
+        casting each to the dtype the walks use; ``n_features``, the
+        training width, is optional."""
         feature = np.ascontiguousarray(feature, dtype=np.int32)
         arrays = dict(
             threshold=np.ascontiguousarray(threshold, dtype=np.float32),
@@ -64,23 +69,40 @@ class ForestModel:
                 raise ValueError(f"forest {k} child index out of [0, {N})")
         return cls(feature=feature, n_classes=int(n_classes),
                    max_depth=int(max_depth), classes=np.asarray(classes),
-                   **arrays)
+                   n_features=None if n_features is None
+                   else int(n_features), **arrays)
 
     @classmethod
     def load(cls, path) -> "ForestModel":
-        """Read the ``.npz`` written by glia_tpu's ForestModel.save."""
+        """Read the ``.npz`` written by glia_tpu's ForestModel.save (or by
+        ``save``, which adds the training width when the forest has one)."""
         with np.load(path) as z:
             return cls.from_arrays(
                 z["feature"], z["threshold"], z["left"], z["right"],
                 z["leaf_class"], int(z["n_classes"]), int(z["max_depth"]),
-                z["classes"])
+                z["classes"],
+                int(z["n_features"]) if "n_features" in z else None)
 
     def save(self, path):
+        width = {} if self.n_features is None else {
+            "n_features": self.n_features}
         np.savez_compressed(
             path, feature=self.feature, threshold=self.threshold,
             left=self.left, right=self.right, leaf_class=self.leaf_class,
             n_classes=self.n_classes, max_depth=self.max_depth,
-            classes=self.classes)
+            classes=self.classes, **width)
+
+
+def check_width(n_features: Optional[int], max_feature: int, D: int):
+    """Refuse samples of ``D`` features for a forest trained on
+    ``n_features`` (when known) or splitting on feature ``max_feature``:
+    a forest scores only the columns it was trained on, in their places."""
+    if n_features is not None and n_features != D:
+        raise ValueError(f"forest was trained on {n_features} features but "
+                         f"the samples have {D}")
+    if max_feature >= D:
+        raise ValueError(f"forest splits on feature {max_feature} but the "
+                         f"samples have {D} features")
 
 
 def predict_votes_np(model: ForestModel, X) -> np.ndarray:
@@ -170,6 +192,7 @@ class ForestTables:
     n_classes: int
     max_depth: int
     max_feature: int          # largest split feature index (-1: no splits)
+    n_features: Optional[int]  # training width (None: not known)
     # block geometries of the CUDA kernel, by (D, shared-memory limit)
     plans: dict = field(default_factory=dict)
 
@@ -190,13 +213,12 @@ class ForestTables:
             tree_start=up(tree_start, torch.int32), n_real=n_real,
             n_trees=model.n_trees, n_nodes=model.feature.shape[1],
             n_classes=int(model.n_classes), max_depth=int(model.max_depth),
-            max_feature=int(model.feature.max(initial=-1)))
+            max_feature=int(model.feature.max(initial=-1)),
+            n_features=model.n_features)
 
 
 def check_features(tables: ForestTables, D: int):
-    if tables.max_feature >= D:
-        raise ValueError(f"forest splits on feature {tables.max_feature} "
-                         f"but the samples have {D} features")
+    check_width(tables.n_features, tables.max_feature, D)
 
 
 def forest_leaves_torch(X: torch.Tensor, tables: ForestTables) -> torch.Tensor:
@@ -412,4 +434,4 @@ def train_forest(X, y, n_trees=255, mtry=None, sample_ratio=0.7,
     return ForestModel(feature=feature, threshold=threshold, left=left,
                        right=right, leaf_class=leaf_class,
                        n_classes=len(classes), max_depth=int(depth.max()),
-                       classes=classes)
+                       classes=classes, n_features=D)

@@ -277,10 +277,14 @@ def greedy_merge_bc_native(rag, cfg, model, label=-1, max_merges=None):
     lo, hi = ranges.pop()
     if rag.region_ptr is None or rag.dir_pairs is None:
         raise ValueError("build RAG with contour_only=False")
-    # the engine's candidate vectors have no saliency columns; a forest
-    # that splits past them would read beyond each vector
+    # the engine's candidate vectors have no saliency columns: a forest
+    # trained on another width reads its columns in the wrong places, and
+    # one that splits past them would read beyond each vector
     width = (cfg.boundary_feat_dim(with_saliency=False)
              + 3 * cfg.region_feat_dim(len(rag.shape), with_saliency=False))
+    if model.n_features is not None and model.n_features != width:
+        raise ValueError(f"forest was trained on {model.n_features} "
+                         f"features but the BC features have {width}")
     if int(model.feature.max(initial=-1)) >= width:
         raise ValueError(f"forest splits on feature "
                          f"{int(model.feature.max())} but the BC features "

@@ -17,10 +17,10 @@ final segmentation -> eval (VI / adapted Rand):
   superstep)
 
   engine="device": watershed -> pre_merge -> RAG -> pb-policy merge order
-  on the device with exact saliencies -> host features of the merge tree
+  on the device (multi-phase engine) with exact saliencies -> host features of the merge tree
   -> merge probabilities from the classifier
 
-  engine="host": the same with the serial C++ merge order
+  engine="host" (the default): the same with the serial C++ merge order
 """
 
 from __future__ import annotations
@@ -130,7 +130,8 @@ def hmt_model_from_arrays(feature=None, threshold=None, left=None,
                           policy="median", kind="rf", feature_set="full",
                           w=None, minmax=None, n1=None, n2=None,
                           forests=None, dim0=None, dim1=None,
-                          ensemble_threshold=None) -> HmtModel:
+                          ensemble_threshold=None,
+                          n_features=None) -> HmtModel:
     """An HmtModel from the fields of glia_tpu's HmtModel passed as plain
     values and numpy arrays: for kind="rf" its forest's node arrays (the
     first eight arguments); for kind="rf_ensemble" its ensemble's three
@@ -138,7 +139,9 @@ def hmt_model_from_arrays(feature=None, threshold=None, left=None,
     member's arrays), the area columns ``dim0`` and ``dim1`` and the
     routing ``ensemble_threshold``; for kind="mlp" its extra's ``w``,
     ``minmax``, ``n1`` and ``n2``; for kind="logsig" ``w`` and
-    ``minmax``.  Other kinds raise."""
+    ``minmax``.  Other kinds raise.  ``n_features`` (kind="rf", optional):
+    the width the forest was trained on, which the walks then demand of
+    their samples (glia_tpu's forests do not carry it)."""
     if kind not in KINDS:
         raise ValueError(f"model kind {kind!r} is not ported "
                          f"({'|'.join(KINDS)})")
@@ -150,22 +153,25 @@ def hmt_model_from_arrays(feature=None, threshold=None, left=None,
     given = {"w": w, "minmax": minmax, "n1": n1, "n2": n2,
              "forests": forests, "dim0": dim0, "dim1": dim1,
              "ensemble_threshold": ensemble_threshold,
+             "n_features": n_features,
              **dict(zip(FOREST_ARRAYS, tree_arrays))}
-    takes = {"rf": FOREST_ARRAYS, "mlp": ("w", "minmax", "n1", "n2"),
+    takes = {"rf": FOREST_ARRAYS + ("n_features",),
+             "mlp": ("w", "minmax", "n1", "n2"),
              "logsig": ("w", "minmax"),
              "rf_ensemble": ("forests", "dim0", "dim1",
                              "ensemble_threshold")}[kind]
-    optional = ("minmax",) if kind == "logsig" else ()
+    optional = {"logsig": ("minmax",), "rf": ("n_features",)}.get(kind, ())
     missing = [k for k in takes if given[k] is None and k not in optional]
     extra_args = [k for k, v in given.items()
                   if v is not None and k not in takes]
     if missing or extra_args:
         raise ValueError(f"kind={kind!r} takes {', '.join(takes)}"
-                         f"{' (minmax optional)' if optional else ''}; "
+                         f"{f' ({optional[0]} optional)' if optional else ''}"
+                         "; "
                          f"missing {missing}, not taken {extra_args}")
     forest, extra = None, None
     if kind == "rf":
-        forest = ForestModel.from_arrays(*tree_arrays)
+        forest = ForestModel.from_arrays(*tree_arrays, n_features=n_features)
     elif kind == "rf_ensemble":
         if len(forests) != 3:
             raise ValueError(f"an ensemble has 3 forests, got "
@@ -369,7 +375,7 @@ ENGINES = ("device_bc", "device", "host")
 
 def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
                 pre_merge_size=30, mode="greedy", backend="np",
-                engine="device_bc", device: DeviceLike = None,
+                engine="host", device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None,
                 stats: Optional[dict] = None):
     """Inference: watershed -> pre_merge -> merge order -> merge
@@ -383,8 +389,9 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
     probability.  engine="device": the batched pb-policy merge order on
     the device (``model.policy``: mean, median or median_minsize) with
     exact merge-time saliencies, then host feature extraction over the
-    merge tree and one batched scoring.  engine="host": the same with the
-    exact serial C++ merge order.  ``backend`` picks a forest's walk
+    merge tree and one batched scoring; its merge runs the multi-phase
+    engine (mode="fused_ms").  engine="host" (the default): the same with
+    the exact serial C++ merge order.  ``backend`` picks a forest's walk
     there, an ensemble's members' too ("np": host float64; "device": the
     device walk); MLP2 and Logsig models run on the device in ``dtype``.
     ``device`` defaults to the CUDA card and raises without one; pass

@@ -44,7 +44,9 @@ def test_scan_covers_the_package():
                 "models/train_ensemble.py", "infer/ccm.py",
                 "features/labels.py", "models/ensemble.py",
                 "models/rf_legacy.py", "tools.py", "graph/merge_bc.py",
-                "features/serialize.py"):
+                "features/serialize.py", "metrics/device.py",
+                "ops/tree_scan.py", "learn/optim.py",
+                "infer/confidence.py"):
         assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 

@@ -1,4 +1,5 @@
-"""Port graph/merge_device.py vs glia_tpu's single-phase fused engine.
+"""Port graph/merge_device.py vs glia_tpu's single-phase fused engine
+(mode="fused"; the other engines: tests/test_torch_merge_engines.py).
 
 Inputs are seeded synthetic slices (the cases of tests/test_merge_device.py:
 64x64 seed 33 and 192x192 seed 31) turned into RAG edge arrays by
@@ -328,7 +329,7 @@ def test_greedy_merge_device_matches(case, policy):
                                                  policy=policy, mode="fused")
     st = {}
     keys, sal = tm.greedy_merge_device(rag, data["pb"], policy=policy,
-                                       device="cpu", stats=st)
+                                       mode="fused", device="cpu", stats=st)
     assert keys.dtype == np.int64 and len(keys) > 10
     np.testing.assert_array_equal(keys, want_keys)
     np.testing.assert_allclose(sal, np.asarray(want_sal), rtol=1e-12, atol=0)
@@ -344,20 +345,9 @@ def test_greedy_merge_device_mean_saliency_options(case64, kw):
                                                  policy="mean", mode="fused",
                                                  **kw)
     keys, sal = tm.greedy_merge_device(rag, data["pb"], policy="mean",
-                                       device="cpu", **kw)
+                                       mode="fused", device="cpu", **kw)
     np.testing.assert_array_equal(keys, want_keys)
     np.testing.assert_allclose(sal, np.asarray(want_sal), rtol=1e-12, atol=0)
-
-
-@pytest.mark.parametrize("mode", ["fused_ms", "chunked"])
-def test_unported_modes_raise(case64, mode):
-    data, _, rag = case64
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.greedy_merge_device(rag, data["pb"], mode=mode, device="cpu")
-    u, v, s, c = jm.edge_mean_arrays(rag, data["pb"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.merge_batched_device(u, v, s, c, rag.n_regions, mode=mode,
-                                device="cpu")
 
 
 def test_bad_policy_and_mode_raise(case64):

@@ -16,12 +16,11 @@ one forest scoring) runs on the same slice for the policies mean, median
 and median_minsize, each with a forest trained by glia_tpu on the 148-wide
 BC features (with the saliency columns, which this engine scores).  It is
 held against the same steps composed from glia_tpu's functions with
-greedy_merge_device(mode="fused"), the engine the port has: identical
-seg0, order, probabilities (host walk and device walk), picks and final
-segmentation, evaluate() equal to 1e-12.  glia_tpu's own
-hmt_segment(engine="device") runs mode="fused_ms", which builds the same
-hierarchy but not provably the same rows: there the merge count must be
-equal and the VI between the two final segmentations 0.
+greedy_merge_device's default (mode="fused_ms"): identical seg0, order,
+probabilities (host walk and device walk), picks and final segmentation,
+evaluate() equal to 1e-12; and against glia_tpu's own
+hmt_segment(engine="device"): identical rows and segmentation.  A default
+hmt_segment call runs engine="host" on both sides.
 """
 
 import numpy as np
@@ -29,7 +28,6 @@ import pytest
 import torch
 
 import glia_tpu.pipeline as jp
-import glia_tpu_torch.graph.merge_device as tmd
 import glia_tpu_torch.native as tn
 import glia_tpu_torch.pipeline as tp
 from glia_tpu.data.synthetic import synthetic_em_slice
@@ -44,6 +42,7 @@ from glia_tpu.infer.segment import final_segmentation
 from glia_tpu.metrics import eval_vi
 from glia_tpu.models.forest import train_forest
 from glia_tpu.native import greedy_merge_native
+from glia_tpu_torch.features.config import FeatureConfig as TFeatureConfig
 from glia_tpu_torch.graph.rag import build_rag as t_build_rag
 from glia_tpu_torch.models.forest import ForestModel, ForestTables
 from glia_tpu_torch.ops.cuda import forest_votes_cuda, launches
@@ -71,7 +70,8 @@ def test_hmt_segment_device_bc_matches_jax(case):
                                     engine="device_bc")
     stats = {}
     got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
-                                  device="cpu", stats=stats)
+                                  engine="device_bc", device="cpu",
+                                  stats=stats)
     np.testing.assert_array_equal(got["seg0"], want["seg0"])
     assert len(got["order"]) > 20
     np.testing.assert_array_equal(got["order"], want["order"])
@@ -97,9 +97,10 @@ def test_no_device_without_cuda_raises(case, monkeypatch):
 
     monkeypatch.setattr(tp, "watershed", must_not_run)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tp.hmt_segment(s["pb"], s["intensity"], model)
+        tp.hmt_segment(s["pb"], s["intensity"], model, engine="device_bc")
     with pytest.raises(RuntimeError, match="CUDA"):
-        tp.hmt_segment(s["pb"], s["intensity"], model, device="cuda")
+        tp.hmt_segment(s["pb"], s["intensity"], model, engine="device_bc",
+                       device="cuda")
     for kw in ({}, {"device": "cuda"}, {"backend": "device"}):
         with pytest.raises(RuntimeError, match="CUDA"):
             tp.hmt_segment(s["pb"], s["intensity"], model, engine="device",
@@ -115,20 +116,12 @@ def test_no_device_without_cuda_raises(case, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [{"classifier": "rf"},
-                                {"classifier": "rf_ensemble"},
-                                {"merge_mode": "fused_ms"}])
+                                {"classifier": "rf_ensemble"}])
 def test_unported_engines_raise(case, kw, monkeypatch):
-    """What the port does not have yet raises NotImplementedError naming
-    its ROADMAP.md item: the multi-phase merge engine.  hmt_train's forest
-    classifiers are ported: they train on the host (no card asked for),
-    return their kind of model, and an unknown classifier raises."""
+    """hmt_train's forest classifiers (once not ported) train on the host
+    (no card asked for), return their kind of model, and an unknown
+    classifier raises."""
     s, _, _ = case
-    if "merge_mode" in kw:
-        rag = t_build_rag(tp.watershed(s["pb"], 0.05), contour_only=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tmd.greedy_merge_device(rag, s["pb"], mode=kw["merge_mode"],
-                                    device="cpu")
-        return
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     m = tp.hmt_train([s], n_trees=5, **kw)
     assert m.kind == kw["classifier"]
@@ -181,12 +174,11 @@ def device_case(request):
 
 
 def _glia_tpu_device_steps(s, jmodel, backend):
-    """glia_tpu.pipeline.hmt_segment(engine="device") with its merge in
-    mode="fused" (pipeline.py:280-283, 329-341)."""
+    """glia_tpu.pipeline.hmt_segment(engine="device") (pipeline.py:280-283,
+    329-341) with the forest walk ``backend``."""
     seg = jp.pre_merge(jp.watershed(s["pb"], 0.05), s["pb"], (30,))
     rag = build_rag(seg, contour_only=False)
-    order, sals = greedy_merge_device(rag, s["pb"], policy=jmodel.policy,
-                                      mode="fused")
+    order, sals = greedy_merge_device(rag, s["pb"], policy=jmodel.policy)
     feats = jp._features_for(seg, s["pb"], s["intensity"], jmodel, order,
                              sals)
     probs = jmodel.predict_merge_prob(feats, backend=backend)
@@ -224,18 +216,98 @@ def test_hmt_segment_device_matches_glia_tpu_steps(device_case, backend):
 
 
 def test_hmt_segment_device_vs_glia_tpu_multiphase_engine(device_case):
-    """glia_tpu's own hmt_segment(engine="device") merges in
-    mode="fused_ms": the same hierarchy, so the same merge count and the
-    same final segmentation up to label names (VI 0)."""
+    """glia_tpu's own hmt_segment(engine="device"): both merge in
+    mode="fused_ms", so the same rows, probabilities and segmentation."""
     s, jmodel, model = device_case
     want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jmodel,
                                     engine="device")
     got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
                                   engine="device", device="cpu")
     np.testing.assert_array_equal(got["seg0"], want["seg0"])
-    assert len(got["order"]) == len(want["order"])
+    np.testing.assert_array_equal(got["order"], want["order"])
+    np.testing.assert_array_equal(got["probs"], want["probs"])
+    np.testing.assert_array_equal(got_seg, want_seg)
     _, _, vi = eval_vi(got_seg, want_seg)
     assert vi == 0.0
+
+
+def test_hmt_segment_defaults_match_glia_tpu(device_case):
+    """hmt_segment with default arguments runs engine="host" in both
+    packages (glia_tpu's flow: hmt_train, then hmt_segment)."""
+    s, jmodel, model = device_case
+    want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jmodel)
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
+                                  device="cpu")
+    np.testing.assert_array_equal(got["order"], want["order"])
+    np.testing.assert_array_equal(got["probs"], want["probs"])
+    np.testing.assert_array_equal(got_seg, want_seg)
+
+
+def test_hmt_segment_device_two_phases_matches_glia_tpu():
+    """engine="device" on a section whose merge runs two phases of the
+    multi-phase engine: the same rows, probabilities and segmentation as
+    glia_tpu's hmt_segment(engine="device")."""
+    train = synthetic_em_slice(shape=(96, 96), n_cells=20, seed=4)
+    seg = jp.pre_merge(jp.watershed(train["pb"], 0.05), train["pb"], (30,))
+    rag = build_rag(seg, contour_only=False)
+    order, sals = greedy_merge_native(rag, train["pb"], policy="mean")
+    cfg = FeatureConfig.standard(train["pb"], train["intensity"], n_bins=16)
+    X = TreeFeatures(rag, order, cfg, saliencies=sals).bc_features()
+    y, _, _ = bc_labels(seg, train["truth"], order, rule="f1")
+    f = train_forest(X, y, n_trees=10, seed=0)
+    jmodel = jp.HmtModel(forest=f, policy="mean")
+    model = tp.hmt_model_from_arrays(
+        f.feature, f.threshold, f.left, f.right, f.leaf_class, f.n_classes,
+        f.max_depth, f.classes, policy="mean")
+    s = synthetic_em_slice(shape=(512, 512), n_cells=800, seed=6)
+    want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jmodel,
+                                    engine="device")
+    stats = {}
+    got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
+                                  engine="device", device="cpu",
+                                  stats=stats)
+    assert len(stats["buckets"]) == 2 and stats["fallback"] is False
+    np.testing.assert_array_equal(got["order"], want["order"])
+    np.testing.assert_array_equal(got["probs"], want["probs"])
+    np.testing.assert_array_equal(got_seg, want_seg)
+
+
+def test_bc_engines_refuse_a_forest_of_another_width(case, tmp_path):
+    """A forest trained on 148 columns reads the 143 BC columns in the
+    wrong places even when it never splits past column 142: both BC
+    engines refuse it, by its training width.  Carried over without a
+    width, only its splits are checked, as before."""
+    s, _, _ = case
+    rng = np.random.default_rng(7)
+    X = rng.random((300, 148))
+    X[:, 143:] = 0.0              # constant: never split on
+    y = np.where(X[:, 0] + X[:, 142] > 1.0, 1, -1)
+    f = tp.train_forest(X, y, n_trees=5, seed=0)
+    assert f.n_features == 148 and f.feature.max() < 143
+    with pytest.raises(ValueError, match="trained on 148"):
+        tp.hmt_segment(s["pb"], s["intensity"], tp.HmtModel(forest=f),
+                       engine="device_bc", device="cpu")
+    seg = tp.pre_merge(tp.watershed(s["pb"], 0.05), s["pb"], (30,))
+    cfg = TFeatureConfig.standard(s["pb"], s["intensity"], n_bins=16)
+    with pytest.raises(ValueError, match="trained on 148"):
+        tn.greedy_merge_bc_native(t_build_rag(seg, contour_only=False),
+                                  cfg, f)
+    f.save(tmp_path / "f.npz")
+    assert ForestModel.load(tmp_path / "f.npz").n_features == 148
+    m = tp.hmt_model_from_arrays(f.feature, f.threshold, f.left, f.right,
+                                 f.leaf_class, f.n_classes, f.max_depth,
+                                 f.classes, n_features=148)
+    assert m.forest.n_features == 148
+    bare = tp.hmt_model_from_arrays(f.feature, f.threshold, f.left,
+                                    f.right, f.leaf_class, f.n_classes,
+                                    f.max_depth, f.classes).forest
+    assert bare.n_features is None
+    kw = dict(label=1, backend="device", device="cpu")
+    np.testing.assert_array_equal(
+        tp.predict_label_fraction(bare, X[:, :143], **kw),
+        tp.predict_label_fraction(f, X, **kw))
+    with pytest.raises(ValueError, match="trained on 148"):
+        tp.predict_label_fraction(f, X[:, :143], **kw)
 
 
 def test_predict_merge_prob_backends(device_case):
@@ -278,7 +350,8 @@ def test_device_engine_checks_policy_and_model(case):
     # engines; device_bc assembles the full vector only, as in glia_tpu
     simple = tp.hmt_model_from_arrays(*args, feature_set="simple")
     with pytest.raises(ValueError, match="feature_set"):
-        tp.hmt_segment(s["pb"], s["intensity"], simple, device="cpu")
+        tp.hmt_segment(s["pb"], s["intensity"], simple, engine="device_bc",
+                       device="cpu")
     m = tp.hmt_model_from_arrays(*args, n_bins=8, policy="mean")
     assert (m.n_bins, m.policy) == (8, "mean")
     np.testing.assert_array_equal(m.forest.threshold, f.threshold)
@@ -387,9 +460,8 @@ def test_trained_weights_match_glia_tpu(trained, kind):
 @pytest.mark.parametrize("kind", ["mlp", "logsig"])
 def test_hmt_segment_with_trained_models(trained, kind, engine, mode):
     """Each side segments the 96x96 test slice with its own trained model:
-    probabilities within 1e-6, the same final segmentation (VI 0); the
-    device engine is held against glia_tpu's own (fused_ms), which builds
-    the same hierarchy in another row order."""
+    the same merge rows (both device engines run mode="fused_ms"),
+    probabilities within 1e-6, the same final segmentation (VI 0)."""
     jm, tm = trained[kind]
     s = synthetic_em_slice(shape=(96, 96), n_cells=20, seed=4)
     want_seg, want = jp.hmt_segment(s["pb"], s["intensity"], jm,
@@ -397,10 +469,9 @@ def test_hmt_segment_with_trained_models(trained, kind, engine, mode):
     got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], tm,
                                   engine=engine, mode=mode, device="cpu")
     assert len(got["order"]) == len(want["order"]) > 20
-    if engine == "host":
-        np.testing.assert_array_equal(got["order"], want["order"])
-        gap = np.max(np.abs(got["probs"] - want["probs"]))
-        assert gap <= 1e-6, f"merge probabilities differ by {gap}"
+    np.testing.assert_array_equal(got["order"], want["order"])
+    gap = np.max(np.abs(got["probs"] - want["probs"]))
+    assert gap <= 1e-6, f"merge probabilities differ by {gap}"
     _, _, vi = eval_vi(got_seg, want_seg)
     assert vi == 0.0, f"final segmentations differ: VI {vi}"
     assert got["n_picks"] == want["n_picks"]
