@@ -10,7 +10,9 @@ median) with seeded random forests in the reference's shape (255 trees,
 classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
 and on ``engine="host"``; then forests trained by the port's CART trainer
-on every engine; then bench.py's merge flow on its 4096 x 4096 section.
+on every engine; then bench.py's merge flow on its 4096 x 4096 section;
+then the stack paths at BASELINE config #2's scale (3D HMT on a volume of
+512 x 512 sections, LINK3D across its sections) and the file-bus CLI.
 Phases, one JSON line each:
 
   env     torch / CUDA versions, the card's name and power limit
@@ -79,8 +81,40 @@ Phases, one JSON line each:
           shapes; the sparse-pair metrics of the cut against the host's.
           On the data section: merge_serial_device (float64, card = CPU
           bit for bit), mode="chunked" (card rows = CPU rows), the dense
-          device metrics and the tree scan against the host's; then the
-          ``kernels`` line
+          device metrics and the tree scan against the host's
+  slice_3d
+          BASELINE config #2 (tools/run_3d_hmt.py's flow): a synthetic
+          volume of VOL_Z_RUN (64) sections of 512^2 with 4 cells a
+          section (seed 17), a forest of 80 trees trained by hmt_train on
+          a (z // 4) x 256^2 subvolume (seed 31); pipeline3d.hmt3d_segment
+          with its defaults (the host engine, the forest walked on the
+          card), then hmt_segment(
+          engine="device", backend="device") on the whole volume (no
+          fallback of the multi-phase engine, B1 equal to the plain walk
+          at the volume's batch, two more runs of the device merge with
+          the same rows and saliency bits, float64 exact saliencies of
+          the mean flow within 1e-12 of the C++ replay, or the script
+          fails; B2 at the volume's shapes), then engine="device_bc" on
+          the training subvolume with a forest at its BC width (every
+          B1 batch and every B2 sum of its loop held to the plain
+          versions, or the script fails; B2 timed at its first
+          superstep's sums);
+          supervoxels, RAG edges, merges, stage seconds, VI / adapted
+          Rand against the truth beside the watershed baseline's
+  slice_link3d
+          link3d_train on the subvolume's sections (their truth as the
+          segmentations), link3d_segment on the volume's sections with
+          the link forest walked on the card (B1 equal to the plain walk
+          at the link rows, or the script fails); pairs, links, seconds,
+          the linking error
+  slice_cli
+          python -m glia_tpu_torch.cli's main, subcommand by subcommand,
+          on the data section through .npy images: watershed, pre_merge,
+          merge_order_pb --engine device, bc_feat, bc_label, train_rf,
+          pred_rf, merge_order_bc --engine device, segment_greedy,
+          eval_vi, eval_ri, then the LINK3D subcommands on two sections
+          of the volume; every output equal to what the library call it
+          wraps gives, or the script fails; then the ``kernels`` line
 
 Any failed phase raises and the script exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the rest of
@@ -171,9 +205,13 @@ def cuda_graph_time_ms(fn, inner=20, reps=20):
 # ---------------------------------------------------------------------------
 
 def phase_env():
+    import importlib.util
+
     smi = nvidia_smi_line()
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          # io/image.py needs imageio for every suffix but .npy
+          "imageio": importlib.util.find_spec("imageio") is not None,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "capability": list(torch.cuda.get_device_capability(0)),
@@ -604,13 +642,14 @@ def phase_slice(data, model, dev):
 SEGMENT_SUM_RTOL = 1e-5
 
 
-def capture_segment_sums(fn, keep=True, first=None):
+def capture_segment_sums(fn, keep=True, first=None, outputs=None):
     """Run ``fn()`` and return the (values, ids, n_segments, sorted) of
     every segment sum the merge engines asked for meanwhile.  Every call
     that states ``sorted=True`` is checked on the card: its ids must be
     non-decreasing (the kernel takes the caller's word for it).
     ``keep=False`` only checks and counts: the list holds None.
-    ``first``: only the first so many calls are checked and listed."""
+    ``first``: only the first so many calls are checked and listed.
+    ``outputs``: a list that receives a copy of each listed call's sum."""
     import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
 
@@ -626,7 +665,10 @@ def capture_segment_sums(fn, keep=True, first=None):
                 f"its ids decrease (values {tuple(values.shape)})")
         calls.append((values.contiguous(), seg_ids.long().contiguous(),
                       int(n_segments), bool(sorted)) if keep else None)
-        return real(values, seg_ids, n_segments, sorted=sorted)
+        out = real(values, seg_ids, n_segments, sorted=sorted)
+        if outputs is not None:
+            outputs.append(out.clone())
+        return out
 
     md.segment_sum_auto = mbd.segment_sum_auto = record
     try:
@@ -645,6 +687,33 @@ def run_lengths(ids, S):
     return float(counts.double().mean()), int(counts.max())
 
 
+def sum_rel_err(got, want):
+    """The largest error relative to each sum, with a floor of 1e-6 of the
+    largest sum so that empty segments (0 on both sides) divide by
+    something."""
+    if want.numel() == 0:
+        return 0.0
+    floor = 1e-6 * float(want.abs().max()) + 1e-30
+    return float(((got - want).abs() / (want.abs() + floor)).max())
+
+
+def hold_segment_sums(name, calls, outputs):
+    """Every segment sum of a run (``calls`` and ``outputs`` as
+    capture_segment_sums lists them) against the plain sum on the card,
+    within SEGMENT_SUM_RTOL, or the script fails."""
+    from glia_tpu_torch.ops.segment_csr import segment_sum_torch
+
+    worst = 0.0
+    for i, ((values, ids, S, _), got) in enumerate(zip(calls, outputs)):
+        rel = sum_rel_err(got, segment_sum_torch(values, ids, S))
+        if not bool(torch.isfinite(got).all()) or rel > SEGMENT_SUM_RTOL:
+            raise AssertionError(f"segment_sum[{name}, call {i}]: max "
+                                 f"relative error {rel} above "
+                                 f"{SEGMENT_SUM_RTOL}")
+        worst = max(worst, rel)
+    return {"sums": len(calls), "max_rel_err": worst}
+
+
 def check_segment_sum(name, values, ids, S, is_sorted, prev_ms=None):
     """One shape of kernel B2 against the plain version on the card; the
     sorted entry must also give the bits of the CPU's ``index_add_``, for
@@ -658,10 +727,7 @@ def check_segment_sum(name, values, ids, S, is_sorted, prev_ms=None):
     want = segment_sum_torch(values, ids, S)
     torch.cuda.synchronize()
     diff = (got - want).abs()
-    # relative to each sum, with a floor of 1e-6 of the largest sum so
-    # that empty segments (0 on both sides) divide by something
-    floor = 1e-6 * float(want.abs().max()) + 1e-30
-    rel = float((diff / (want.abs() + floor)).max())
+    rel = sum_rel_err(got, want)
     if not bool(torch.isfinite(got).all()) or rel > SEGMENT_SUM_RTOL:
         raise AssertionError(f"segment_sum[{name}]: max relative error "
                              f"{rel} above {SEGMENT_SUM_RTOL}")
@@ -736,6 +802,33 @@ B2_PREV_MS = {"dedupe_median": 0.00665, "dedupe_mean": 0.00368,
               "random_sorted": 0.02722}
 
 
+# the segment sums of one device_bc superstep by call site, in call
+# order, with whether each states sorted ids; B2 is timed at the first
+# three and the last
+BC_SUMS = (("bc_by_lower", True), ("bc_by_upper", True),
+           ("bc_count_min_u", False), ("bc_count_min_v", False),
+           ("bc_count_max_u", False), ("bc_count_max_v", False),
+           ("bc_dedupe", True))
+BC_SUMS_TIMED = ("bc_by_lower", "bc_by_upper", "bc_count_min_u",
+                 "bc_dedupe")
+
+
+def bc_superstep_sums(calls, step, prefix=""):
+    """The segment sums B2 is timed at, of superstep ``step`` of the
+    device_bc loop whose sums capture_segment_sums listed in ``calls``,
+    named by their call site."""
+    n = len(BC_SUMS)
+    if len(calls) % n:
+        raise AssertionError(f"{len(calls)} segment sums in a device_bc "
+                             f"loop, not a multiple of {n}")
+    block = calls[n * step:n * (step + 1)]
+    if [c[3] for c in block] != [srt for _, srt in BC_SUMS]:
+        raise AssertionError("the device_bc loop's segment sums are not "
+                             "the ones this phase expects")
+    return [(prefix + name, *c) for (name, _), c in zip(BC_SUMS, block)
+            if name in BC_SUMS_TIMED]
+
+
 def device_bc_segment_sums(data, rag, model, dev, supersteps=12):
     """The segment sums of the last of ``supersteps`` supersteps of the
     device_bc merge loop on this section, named by their call site."""
@@ -747,21 +840,11 @@ def device_bc_segment_sums(data, rag, model, dev, supersteps=12):
     scorer = make_label_scorer(model, label=-1, device=dev)
     calls = capture_segment_sums(lambda: mbd.merge_order_bc_device(
         rag, cfg, scorer, max_supersteps=supersteps, device=dev))
-    names = ["bc_by_lower", "bc_by_upper", "bc_count_min_u",
-             "bc_count_min_v", "bc_count_max_u", "bc_count_max_v",
-             "bc_dedupe"]
-    if len(calls) != supersteps * len(names):
+    if len(calls) != supersteps * len(BC_SUMS):
         raise AssertionError(f"{len(calls)} segment sums in {supersteps} "
                              f"device_bc supersteps, expected "
-                             f"{supersteps * len(names)}")
-    last = calls[-len(names):]
-    want_sorted = [True, True, False, False, False, False, True]
-    if [c[3] for c in last] != want_sorted:
-        raise AssertionError("the device_bc loop's segment sums are not "
-                             "the ones this phase expects")
-    return [(n, *c) for n, c in zip(names, last)
-            if n not in ("bc_count_min_v", "bc_count_max_u",
-                         "bc_count_max_v")]
+                             f"{supersteps * len(BC_SUMS)}")
+    return bc_superstep_sums(calls, supersteps - 1)
 
 
 def phase_kernel_segment(data, rag, model, dev, seed):
@@ -811,10 +894,14 @@ def phase_kernel_segment(data, rag, model, dev, seed):
               ("random_sorted", vals, ids_sorted, S, True),
               ("random_sorted_padded", vals, sorted_padded, S, True),
               ("long_run", vals[:50000].contiguous(), long_run, 512, True)]
-    shapes = [check_segment_sum(*case, prev_ms=B2_PREV_MS.get(case[0]))
-              for case in cases]
-    # the headline numbers are those of the default policy's superstep
-    # (the median sketch's dedupe); every shape is listed beside them
+    return [check_segment_sum(*case, prev_ms=B2_PREV_MS.get(case[0]))
+            for case in cases]
+
+
+def segment_sum_line(shapes):
+    """Kernel B2's entry of the ``kernels`` line: the headline numbers are
+    those of the default policy's superstep (the median sketch's dedupe on
+    the data section); every shape is listed beside them."""
     head = next(r for r in shapes if r["shape"] == "dedupe_median")
     return {"name": "segment_sum", "route": "cuda",
             "source": "glia_tpu_torch/ops/cuda/segment_sum.cu",
@@ -1969,6 +2056,523 @@ def phase_slice_merge(data, seg, rag, dev):
     return paths, shapes
 
 
+# BASELINE config #2 (BASELINE.json:8; tools/run_3d_hmt.py:52-96): a
+# synthetic EM volume of VOL_Z x 512 x 512 voxels and 400 cells, seed 17;
+# its forest trained by hmt_train (VOL_TREES trees, pre-merge 50, watershed
+# 0.04) on an independent (Z // 4) x 256 x 256 subvolume, seed 31, with the
+# cells in proportion.  A cut depth keeps the cell density (n_cells in
+# proportion to Z) and the 512^2 sections.
+VOL_Z = 100
+# the depth the script runs at: at 100 sections slice_3d took 341 s of
+# the script's budget of about 240 s (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 4), the host's pre-merge 94-102 s of each of its two
+# segmentations
+VOL_Z_RUN = 64
+VOL_SIDE = 512
+VOL_CELLS = 400
+VOL_TREES = 80
+VOL_PRE_MERGE = 50
+VOL_WATERSHED = 0.04
+
+
+def volume_config(z):
+    """(n_cells, training depth, side, cells) at depth ``z``, as
+    tools/run_3d_hmt.py computes them."""
+    n_cells = VOL_CELLS * z // VOL_Z
+    tz, tside = max(z // 4, 8), max(VOL_SIDE // 2, 64)
+    tcells = max(n_cells * (tz * tside * tside) // (z * VOL_SIDE ** 2), 8)
+    return n_cells, tz, tside, tcells
+
+
+def counted_run(paths, name, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, into ``paths[name]``; returns (its result, the forest_votes_cuda
+    calls it made)."""
+    from glia_tpu_torch.ops import cuda as kcuda
+
+    kcuda.reset_launches()
+    out, calls = capture_calls(kcuda, "forest_votes_cuda", fn)
+    torch.cuda.synchronize()
+    paths[name] = dict(kcuda.launches)
+    return out, calls
+
+
+def require_launches(paths, name, kernels):
+    for k in kernels:
+        if paths[name][k] == 0:
+            raise AssertionError(f"{name}: {k} never launched")
+
+
+def phase_slice_3d(dev, z, seed):
+    """BASELINE config #2, 3D HMT on the card (tools/run_3d_hmt.py's flow):
+
+    - the volume and the training subvolume (volume_config); the forest
+      of hmt_train on the subvolume, at the volume's BC width;
+    - pipeline3d.hmt3d_segment (engine="host": the serial C++ merge
+      order) with its defaults: the forest walked on the card;
+    - hmt_segment(engine="device", backend="device") on the whole volume:
+      the multi-phase merge on the 3D supervoxel RAG (no fallback, or the
+      script fails), B1 on the volume's batch against the plain walk (0
+      mismatches, or the script fails); the device merge twice more (the
+      path's rows and identical saliencies, or the script fails); the mean
+      flow with exact saliencies on the card in float64 against the C++
+      replay (within EXACT_F64_RTOL, or the script fails); B2 at the
+      volume's shapes;
+    - hmt_segment(engine="device_bc") on the training subvolume with a
+      forest on its BC vector without the saliency columns: every B1
+      batch and every B2 sum of the loop held to the plain versions (or
+      the script fails), B1 timed at the first batch and B2 at the first
+      superstep's sums;
+    - supervoxels, RAG edges, merges, stage seconds, VI / adapted Rand
+      against the truth beside the watershed baseline's.
+
+    Returns (launch counts per path, B1's checks, B2's checks, the data
+    the later phases use)."""
+    import glia_tpu_torch.graph.merge_device as md
+    import glia_tpu_torch.pipeline as tp
+    from glia_tpu_torch.data.synthetic import synthetic_em_stack
+    from glia_tpu_torch.features.config import FeatureConfig
+    from glia_tpu_torch.features.hierarchical import TreeFeatures
+    from glia_tpu_torch.features.labels import bc_labels
+    from glia_tpu_torch.graph.rag import build_rag
+    from glia_tpu_torch.models.forest import train_forest
+    from glia_tpu_torch.pipeline3d import hmt3d_segment
+
+    t_phase = time.perf_counter()
+    paths, b1, b2, failures = {}, [], [], []
+    n_cells, tz, tside, tcells = volume_config(z)
+    seg_kw = dict(watershed_level=VOL_WATERSHED,
+                  pre_merge_size=VOL_PRE_MERGE)
+
+    t = time.perf_counter()
+    stack = synthetic_em_stack((z, VOL_SIDE, VOL_SIDE), n_cells=n_cells,
+                               seed=17)
+    pb, truth = stack["pb3d"], stack["truth3d"]
+    intensity = np.stack([s["intensity"] for s in stack["slices"]])
+    tr = synthetic_em_stack((tz, tside, tside), n_cells=tcells, seed=31)
+    tr_vol = {"pb": tr["pb3d"], "truth": tr["truth3d"],
+              "intensity": np.stack([s["intensity"] for s in tr["slices"]])}
+    generate_s = time.perf_counter() - t
+    st_train = {}
+    t = time.perf_counter()
+    model = tp.hmt_train([tr_vol], n_trees=VOL_TREES, stats=st_train,
+                         **seg_kw)
+    train_s = time.perf_counter() - t
+    emit({"phase": "slice_3d", "part": "data",
+          "volume": [z, VOL_SIDE, VOL_SIDE], "voxels": int(pb.size),
+          "voxels_over_2_24": int(pb.size) > 2 ** 24, "n_cells": n_cells,
+          "train_volume": [tz, tside, tside], "train_cells": tcells,
+          "generate_s": generate_s, "train_s": train_s,
+          "train_stages_s": st_train, "D": model.forest.n_features,
+          "forest": forest_shape(model.forest)})
+
+    def segment(name, fn):
+        st = {}
+        t = time.perf_counter()
+        (out, info), calls = counted_run(paths, name, lambda: fn(st))
+        wall = time.perf_counter() - t
+        check_order(info["order"], info["probs"],
+                    len(np.unique(info["seg0"])), int(info["seg0"].max()))
+        return out, info, calls, {
+            "wall_s": wall, "launches": paths[name],
+            "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
+            "merges": int(len(info["order"])), "n_picks": info["n_picks"],
+            **{k: st[k] for k in ("n_supersteps", "buckets", "fallback",
+                                  "plan_replayed") if k in st}}
+
+    lines = {}
+    seg_h, info_h, _, lines["host"] = segment(
+        "3d_host", lambda st: hmt3d_segment(
+            pb, intensity, model, device=dev, stats=st, **seg_kw))
+    seg0 = info_h["seg0"]
+    t = time.perf_counter()
+    base = tp.evaluate(seg0, truth)
+    lines["host"]["eval"] = tp.evaluate(seg_h, truth)
+    evaluate_s = time.perf_counter() - t
+    seg_d, info_d, calls_d, lines["device"] = segment(
+        "3d_device", lambda st: tp.hmt_segment(
+            pb, intensity, model, engine="device", backend="device",
+            device=dev, stats=st, **seg_kw))
+    lines["device"]["eval"] = tp.evaluate(seg_d, truth)
+    require_launches(paths, "3d_host", ["forest_votes"])
+    require_launches(paths, "3d_device", ["forest_votes", "segment_sum"])
+    if not np.array_equal(info_d["seg0"], seg0):
+        failures.append("engine='device' over-segmentation differs from "
+                        "hmt3d_segment's")
+    if lines["device"].get("fallback") is not False:
+        failures.append("fused_ms fell back to the single-phase engine on "
+                        "the 3D RAG")
+    # the memo is keyed by shape: the volume's first device merge measures
+    # its own plan, replaying none of the sections'
+    if lines["device"].get("plan_replayed") is not False:
+        failures.append("the 3D RAG replayed a plan measured on another "
+                        "graph")
+    b1.append(phase_kernel(calls_d[0][0][0], model.forest, seed,
+                           path="3d_device"))
+
+    # the device merge twice more: the path's rows, identical saliencies;
+    # B2 at the first call's shapes
+    t = time.perf_counter()
+    rag = build_rag(seg0, contour_only=False)
+    rag_s = time.perf_counter() - t
+    runs = []
+    sums = capture_segment_sums(lambda: runs.append(md.greedy_merge_device(
+        rag, pb, policy=model.policy, device=dev)), first=1)
+    runs.append(md.greedy_merge_device(rag, pb, policy=model.policy,
+                                       device=dev))
+    rerun = {"rows_equal_path": all(np.array_equal(o, info_d["order"])
+                                    for o, _ in runs),
+             "identical": bool(np.array_equal(runs[0][0], runs[1][0])
+                               and np.array_equal(runs[0][1], runs[1][1],
+                                                  equal_nan=True))}
+    if not (rerun["rows_equal_path"] and rerun["identical"]):
+        failures.append(f"device merge reruns differ on the volume: {rerun}")
+    b2.append(check_segment_sum("3d_dedupe_median", *sums[0]))
+
+    # exact saliencies of the mean flow on the card in float64 against
+    # the C++ replay of its order; B2 at its LCA-keyed sum
+    R = rag.n_regions
+    u, v, s, c = md.edge_mean_arrays(rag, pb)
+    st64 = {}
+    sums = capture_segment_sums(lambda: runs.append(
+        md.merge_batched_device_exact(u, v, s, c, R, dtype=torch.float64,
+                                      stats=st64, device=dev)))
+    o64, sal64, n64 = runs[-1]
+    host64 = md.replay_exact_saliency(u, v, s, c, o64[:n64].cpu().numpy(),
+                                      engine="native")
+    exact = {"merges": n64, "supersteps": st64["n_supersteps"],
+             "buckets": st64["buckets"], "fallback": st64["fallback"],
+             "f64_rel_gap_vs_replay": rel_gap(
+                 -sal64[:n64].cpu().numpy(), host64)}
+    if exact["f64_rel_gap_vs_replay"] > EXACT_F64_RTOL or exact["fallback"]:
+        failures.append(f"float64 exact saliencies on the volume: {exact}")
+    b2.append(check_segment_sum("3d_lca_keys", *sums[-2]))
+
+    # device_bc on the training subvolume, with a forest on its BC vector
+    # without the saliency columns
+    t = time.perf_counter()
+    st_bc = {}
+    seg_t, order_t, _ = tp._training_slice(
+        tr_vol, "median", VOL_WATERSHED, VOL_PRE_MERGE,
+        tp.HmtModel(forest=None), st_bc)
+    X_bc = TreeFeatures(build_rag(seg_t, contour_only=False), order_t,
+                        FeatureConfig.standard(tr_vol["pb"],
+                                               tr_vol["intensity"],
+                                               n_bins=16)).bc_features()
+    y_bc = bc_labels(seg_t, tr_vol["truth"], order_t, rule="f1")[0]
+    bc_forest = train_forest(X_bc, y_bc, n_trees=VOL_TREES, seed=0,
+                             n_jobs=-1)
+    bc_train_s = time.perf_counter() - t
+    bc_sums, bc_outs = [], []
+
+    def device_bc(st):
+        box = []
+        bc_sums[:] = capture_segment_sums(lambda: box.append(tp.hmt_segment(
+            tr_vol["pb"], tr_vol["intensity"],
+            tp.HmtModel(forest=bc_forest), engine="device_bc", device=dev,
+            stats=st, **seg_kw)), outputs=bc_outs)
+        return box[0]
+
+    seg_bc, info_bc, calls_bc, lines["device_bc"] = segment(
+        "3d_device_bc", device_bc)
+    require_launches(paths, "3d_device_bc", ["forest_votes", "segment_sum"])
+    # every B1 batch and every B2 sum of the loop against the plain
+    # versions on the card (0 vote fractions differing, sums within
+    # SEGMENT_SUM_RTOL), or the script fails
+    from glia_tpu_torch.models.forest import forest_votes_torch
+
+    b1_batches = sum(int((out != forest_votes_torch(args[0], args[1])).sum())
+                     for args, out in calls_bc)
+    if b1_batches:
+        failures.append(f"B1 on the 3D device_bc loop's batches: "
+                        f"{b1_batches} vote fractions differ from the plain "
+                        f"walk")
+    if paths["3d_device_bc"]["segment_sum"] > len(bc_sums):
+        failures.append("the 3D device_bc loop launched B2 outside "
+                        "segment_sum_auto")
+    lines["device_bc"].update(
+        volume=[tz, tside, tside], D=int(X_bc.shape[1]),
+        train_s=bc_train_s, eval=tp.evaluate(seg_bc, tr_vol["truth"]),
+        eval_watershed=tp.evaluate(info_bc["seg0"], tr_vol["truth"]),
+        b1_batches_held=len(calls_bc), b1_batch_mismatches=b1_batches,
+        b2_sums_held=hold_segment_sums("3d_device_bc", bc_sums, bc_outs))
+    # B1 timed at the loop's first batch (every candidate of the
+    # subvolume), B2 at its first superstep's sums
+    b1.append(phase_kernel(calls_bc[0][0][0], bc_forest, seed,
+                           path="3d_device_bc"))
+    b2 += [check_segment_sum(*case)
+           for case in bc_superstep_sums(bc_sums, 0, prefix="3d_")]
+
+    emit({"phase": "slice_3d", "part": "segment",
+          "supervoxels": R, "rag_edges": rag.n_edges, "rag_s": rag_s,
+          "eval_watershed": base, "evaluate_s": evaluate_s,
+          "segment": lines, "rerun": rerun, "exact_saliency": exact,
+          "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_3d: {failures}")
+    return paths, b1, b2, {"stack": stack, "train": tr, "model": model}
+
+
+# the link forest's trees and the linking threshold of
+# pipeline3d.link3d_train / link3d_segment's defaults
+LINK_TREES = 100
+
+
+def phase_slice_link3d(dev, vol, seed):
+    """LINK3D on the card (glia_tpu's tests/test_pipeline3d.py flow at the
+    volume's scale): link3d_train on the training subvolume's sections
+    with their truth as the segmentations, link3d_segment on the volume's
+    sections (their truth as the per-section segmentations) with the
+    forest walked on the card, B1 at the link rows against the plain walk
+    (0 mismatches, or the script fails); pairs, links, seconds and the
+    linking error (adapted Rand of the linked volume against the 3D
+    truth, section by section).  Returns (launch counts, B1's check)."""
+    from glia_tpu_torch.metrics import eval_ri
+    from glia_tpu_torch.pipeline3d import link3d_segment, link3d_train
+
+    t_phase = time.perf_counter()
+    paths = {}
+    tr, stack = vol["train"], vol["stack"]
+    t = time.perf_counter()
+    model = link3d_train(tr["slices"], [s["truth"] for s in tr["slices"]],
+                         n_trees=LINK_TREES)
+    train_s = time.perf_counter() - t
+    slices = stack["slices"]
+    segs = [s["truth"] for s in slices]
+    st = {}
+    t = time.perf_counter()
+    linked, calls = counted_run(paths, "link3d", lambda: link3d_segment(
+        slices, segs, model, device=dev, stats=st))
+    wall = time.perf_counter() - t
+    require_launches(paths, "link3d", ["forest_votes"])
+    truth = stack["truth3d"]
+    prec, rec, err = eval_ri(list(linked), list(truth))
+    b1 = phase_kernel(calls[0][0][0], model, seed, path="link3d")
+    emit({"phase": "slice_link3d", "sections": len(slices),
+          "train_sections": len(tr["slices"]), "train_s": train_s,
+          "forest": forest_shape(model), "D": int(calls[0][0][0].shape[1]),
+          "pairs": st["pairs"], "links": st["links"], "wall_s": wall,
+          "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
+          "launches": paths["link3d"],
+          "linking_error": {"precision": prec, "recall": rec, "error": err},
+          "groups": int(len(np.unique(linked))),
+          "phase_s": time.perf_counter() - t_phase})
+    return paths, b1
+
+
+# trees of the CLI chain's forests (train_rf --nTree)
+CLI_TREES = 100
+
+
+def phase_slice_cli(data, vol, dev, workdir):
+    """The file bus: glia_tpu_torch.cli's main, subcommand by subcommand,
+    on the data section through ``.npy`` images and text files in
+    ``workdir``: watershed, pre_merge, merge_order_pb --engine device,
+    bc_feat (with and without the saliency columns), bc_label, train_rf,
+    pred_rf, merge_order_bc --engine device, segment_greedy, eval_vi,
+    eval_ri; then the LINK3D subcommands on the volume's first two
+    sections (gen_region_pairs, sc_feat, sc_label, a link forest by
+    train_rf and pred_rf --label 1, link_by_threshold,
+    group_region_profiles).  Each
+    output must equal what the library call it wraps gives on the same
+    inputs in this process, or the script fails; the subcommands that
+    run on the card are counted.  Returns (launch counts per path, the
+    seconds of each subcommand)."""
+    import contextlib
+    import importlib
+    import io as stdio
+    import os
+
+    import glia_tpu_torch.graph.merge_device as md
+    import glia_tpu_torch.pipeline as tp
+    from glia_tpu_torch.features.config import FeatureConfig
+    from glia_tpu_torch.features.hierarchical import TreeFeatures
+    from glia_tpu_torch.features.labels import bc_labels
+    from glia_tpu_torch.graph.merge_bc_device import merge_order_bc_device
+    from glia_tpu_torch.graph.rag import build_rag
+    from glia_tpu_torch.graph.tree import build_tree, node_potentials
+    from glia_tpu_torch.infer.greedy import resolve_tree_greedy
+    from glia_tpu_torch.infer.segment import final_segmentation
+    from glia_tpu_torch.io.image import read_label_image
+    from glia_tpu_torch.io.text import (read_matrix, read_merge_order,
+                                        read_vector)
+    from glia_tpu_torch.link3d import link as ll
+    from glia_tpu_torch.metrics import eval_ri, eval_vi
+    from glia_tpu_torch.models.forest import (ForestModel, make_label_scorer,
+                                              predict_label_fraction,
+                                              train_forest)
+
+    cli = importlib.import_module("glia_tpu_torch.cli.main")
+    t_phase = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    paths, seconds, failures = {}, {}, []
+
+    def f(name):
+        return os.path.join(workdir, name)
+
+    def run(*argv, count=None):
+        """One subcommand through cli.main on ``dev``; returns what it
+        printed."""
+        out = stdio.StringIO()
+        full = list(argv) + ["--device", str(dev)]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if count:
+                counted_run(paths, count, lambda: cli.main(full))
+            else:
+                cli.main(full)
+        seconds[argv[0]] = seconds.get(argv[0], 0.0) + \
+            time.perf_counter() - t
+        return out.getvalue()
+
+    def same(name, got, want):
+        if isinstance(want, list):
+            ok = len(got) == len(want) and all(
+                np.array_equal(g, w) for g, w in zip(got, want))
+        else:
+            ok = np.array_equal(got, want)
+        if not ok:
+            failures.append(f"{name}: the subcommand's output differs from "
+                            f"the library call's")
+
+    pb, intensity, truth = data["pb"], data["intensity"], data["truth"]
+    for name, arr in (("pb", pb), ("raw", intensity), ("truth", truth)):
+        np.save(f(f"{name}.npy"), arr)
+
+    run("watershed", "-i", f("pb.npy"), "-l", "0.05", "-o", f("ws.npy"))
+    ws = tp.watershed(pb, 0.05)
+    same("watershed", read_label_image(f("ws.npy")), ws)
+    run("pre_merge", "-s", f("ws.npy"), "-p", f("pb.npy"), "-t", "30",
+        "-o", f("seg0.npy"))
+    seg0 = tp.pre_merge(ws, pb, (30,))
+    same("pre_merge", read_label_image(f("seg0.npy")), seg0)
+
+    run("merge_order_pb", "-s", f("seg0.npy"), "-p", f("pb.npy"),
+        "--engine", "device", "-o", f("order.txt"), "-y", f("sal.txt"),
+        count="cli_merge_order_pb")
+    require_launches(paths, "cli_merge_order_pb", ["segment_sum"])
+    order, sals = md.greedy_merge_device(
+        build_rag(seg0, contour_only=True), pb, policy="median", device=dev)
+    same("merge_order_pb", read_merge_order(f("order.txt")), order)
+    same("merge_order_pb saliencies", read_vector(f("sal.txt")), sals)
+
+    rag = build_rag(seg0, contour_only=False)
+    cfg = FeatureConfig.standard(pb, intensity, n_bins=16)
+    run("bc_feat", "-s", f("seg0.npy"), "-p", f("pb.npy"), "--rawImage",
+        f("raw.npy"), "-o", f("order.txt"), "-y", f("sal.txt"), "-b",
+        f("feat.txt"))
+    X = TreeFeatures(rag, order, cfg, saliencies=sals).bc_features()
+    same("bc_feat", read_matrix(f("feat.txt")), X)
+    run("bc_feat", "-s", f("seg0.npy"), "-p", f("pb.npy"), "--rawImage",
+        f("raw.npy"), "-o", f("order.txt"), "-b", f("feat_bc.txt"))
+    X_bc = TreeFeatures(rag, order, cfg).bc_features()
+    same("bc_feat without saliencies", read_matrix(f("feat_bc.txt")), X_bc)
+    run("bc_label", "-s", f("seg0.npy"), "-t", f("truth.npy"), "-o",
+        f("order.txt"), "-l", f("labels.txt"))
+    y = bc_labels(seg0, truth, order, rule="f1")[0]
+    same("bc_label", read_vector(f("labels.txt"), dtype=np.int64), y)
+
+    forests = {}
+    for name, feats in (("rf", X), ("rf_bc", X_bc)):
+        run("train_rf", "-f", f(f"{'feat' if name == 'rf' else 'feat_bc'}"
+                                f".txt"), "-l", f("labels.txt"), "--nTree",
+            str(CLI_TREES), "-m", f(f"{name}.npz"))
+        got = ForestModel.load(f(f"{name}.npz"))
+        want = train_forest(feats, y, n_trees=CLI_TREES, seed=0, n_jobs=-1)
+        same(f"train_rf {name}", [getattr(got, k) for k in (
+            "feature", "threshold", "left", "right", "leaf_class")],
+            [getattr(want, k) for k in ("feature", "threshold", "left",
+                                        "right", "leaf_class")])
+        forests[name] = want
+    run("pred_rf", "-m", f("rf.npz"), "-f", f("feat.txt"), "-o",
+        f("probs.txt"))
+    probs = predict_label_fraction(forests["rf"], X, label=-1)
+    same("pred_rf", read_vector(f("probs.txt")), probs)
+
+    run("merge_order_bc", "-s", f("seg0.npy"), "-p", f("pb.npy"),
+        "--rawImage", f("raw.npy"), "-m", f("rf_bc.npz"), "--engine",
+        "device", "-o", f("order_bc.txt"), "-y", f("sal_bc.txt"),
+        count="cli_merge_order_bc")
+    require_launches(paths, "cli_merge_order_bc",
+                     ["forest_votes", "segment_sum"])
+    order_bc, probs_bc = merge_order_bc_device(
+        rag, cfg, make_label_scorer(forests["rf_bc"], label=-1, device=dev),
+        device=dev)
+    same("merge_order_bc", read_merge_order(f("order_bc.txt")), order_bc)
+    same("merge_order_bc probabilities", read_vector(f("sal_bc.txt")),
+         probs_bc)
+
+    run("segment_greedy", "-s", f("seg0.npy"), "-o", f("order.txt"), "-p",
+        f("probs.txt"), "-f", f("final.npy"))
+    tree = build_tree(order)
+    final = final_segmentation(
+        seg0, tree, resolve_tree_greedy(tree, node_potentials(tree, probs)))
+    same("segment_greedy", read_label_image(f("final.npy")), final)
+    printed_vi = run("eval_vi", "-p", f("final.npy"), "-r", f("truth.npy"))
+    fs, fm, vi = eval_vi([final], [truth])
+    same("eval_vi", printed_vi, f"{fs:.6g} {fm:.6g} {vi:.6g}\n")
+    printed_ri = run("eval_ri", "-p", f("final.npy"), "-r", f("truth.npy"))
+    prec, rec, err = eval_ri([final], [truth])
+    same("eval_ri", printed_ri, f"{prec:.6g} {rec:.6g} {err:.6g}\n")
+
+    # LINK3D on the volume's first two sections
+    sl = vol["stack"]["slices"][:2]
+    for z in range(2):
+        np.save(f(f"s{z}.npy"), sl[z]["truth"])
+    np.save(f("pbz.npy"), sl[0]["pb"])
+    run("gen_region_pairs", "--s0", f("s0.npy"), "--s1", f("s1.npy"),
+        "--id0", "0", "--id1", "1", "-o", f("pairs.txt"))
+    pairs, _ = ll.gen_region_pairs(sl[0]["truth"], sl[1]["truth"], 0, 1)
+    same("gen_region_pairs", np.loadtxt(f("pairs.txt"), dtype=np.int64,
+                                        ndmin=2),
+         np.array([[a, b, c, d] for (a, b), (c, d) in pairs]))
+    run("sc_feat", "--s0", f("s0.npy"), "--s1", f("s1.npy"), "-p",
+        f("pbz.npy"), "--pairs", f("pairs.txt"), "--bins", "8", "-o",
+        f("sc.txt"))
+    sc = ll.sc_features(sl[0]["truth"], sl[1]["truth"],
+                        FeatureConfig.standard(sl[0]["pb"], n_bins=8),
+                        pairs)
+    same("sc_feat", read_matrix(f("sc.txt")), sc)
+    run("sc_label", "--s0", f("s0.npy"), "--s1", f("s1.npy"), "--t0",
+        f("s0.npy"), "--t1", f("s1.npy"), "--pairs", f("pairs.txt"), "-o",
+        f("sc_labels.txt"))
+    same("sc_label", read_vector(f("sc_labels.txt"), dtype=np.int64),
+         ll.sc_labels(sl[0]["truth"], sl[0]["truth"], sl[1]["truth"],
+                      sl[1]["truth"], pairs)[0])
+    # sc_feat's rows (pb only) are scored by a forest trained on them
+    run("train_rf", "-f", f("sc.txt"), "-l", f("sc_labels.txt"), "--nTree",
+        "20", "-m", f("sc_rf.npz"))
+    run("pred_rf", "-m", f("sc_rf.npz"), "-f", f("sc.txt"), "--label", "1",
+        "-o", f("scores.txt"))
+    scores = read_vector(f("scores.txt"))
+    sc_y = read_vector(f("sc_labels.txt"), dtype=np.int64)
+    same("pred_rf --label 1", scores, predict_label_fraction(
+        train_forest(sc, sc_y, n_trees=20, seed=0, n_jobs=-1), sc, label=1))
+    run("link_by_threshold", "--pairs", f("pairs.txt"), "--scores",
+        f("scores.txt"), "--minScore", "0.5", "-o", f("links.txt"))
+    links = ll.link_by_threshold(pairs, scores, 0.5)
+    same("link_by_threshold", np.loadtxt(f("links.txt"), dtype=np.int64,
+                                         ndmin=2),
+         np.array([[a, b, c, d] for (a, b), (c, d) in links]))
+    run("group_region_profiles", "-s", f("s0.npy"), f("s1.npy"), "--ids",
+        "0", "1", "-l", f("links.txt"), "-o", f("vol%d.npy"))
+    grouped = ll.group_region_profiles([sl[0]["truth"], sl[1]["truth"]],
+                                       [0, 1], links)
+    same("group_region_profiles",
+         np.stack([read_label_image(f(f"vol{z}.npy")) for z in range(2)]),
+         grouped)
+    emit({"phase": "slice_cli", "subcommands": sorted(seconds),
+          "seconds": seconds, "merges": int(len(order)),
+          "merges_bc": int(len(order_bc)), "pairs": len(pairs),
+          "links": len(links), "eval_vi": printed_vi.split(),
+          "eval_ri": printed_ri.split(),
+          "launches": {k: paths[k] for k in paths},
+          "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_cli: {failures}")
+    return paths, seconds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--side", type=int, default=1024)
@@ -1985,12 +2589,13 @@ def main(argv=None):
     dev = torch.device("cuda")
     smi = phase_env()
     phase_build()
-    data, seg, rag, feats, model = phase_data(args.side, args.seed,
-                                              args.trees, args.depth, dev)
+    paths = {}
+    data, seg, rag, feats, model = phase_data(
+        args.side, args.seed, args.trees, args.depth, dev)
     b1 = phase_kernel(feats, model, args.seed)
     phase_kernel_forest_shapes(feats, args.seed)
-    b2 = phase_kernel_segment(data, rag, model, dev, args.seed)
-    paths = {"device_bc": phase_slice(data, model, dev)}
+    b2_shapes = phase_kernel_segment(data, rag, model, dev, args.seed)
+    paths["device_bc"] = phase_slice(data, model, dev)
     device_paths, b1_device, forest = phase_slice_device(
         data, seg, rag, dev, args.seed, args.trees, args.depth)
     paths.update(device_paths)
@@ -2002,18 +2607,31 @@ def main(argv=None):
     paths.update(forest_paths)
     merge_paths, b2_merge = phase_slice_merge(data, seg, rag, dev)
     paths.update(merge_paths)
-    b2["shapes"] += b2_merge
-    for key in ("max_abs_err", "max_rel_err"):
-        b2[key] = max(r[key] for r in b2["shapes"])
-    # one line per kernel: B1's headline numbers are the device_bc batch's,
-    # with the engine="device" and engine="host" batches listed beside them
+    b1_all = [b1, b1_device, b1_host, *b1_trained]
+    b2_shapes += b2_merge
+    vol_paths, b1_3d, b2_3d, vol = phase_slice_3d(dev, VOL_Z_RUN, args.seed)
+    paths.update(vol_paths)
+    b1_all += b1_3d
+    b2_shapes += b2_3d
+    link_paths, b1_link = phase_slice_link3d(dev, vol, args.seed)
+    paths.update(link_paths)
+    b1_all.append(b1_link)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_paths, _ = phase_slice_cli(data, vol, dev, workdir)
+    paths.update(cli_paths)
+    # one line per kernel: B1's headline numbers are the first path's
+    # batch (device_bc's in a whole run), with every other path's batch
+    # listed beside them; B2's are its first shape's
     sub = ("path", "shape", "mismatches", "max_abs_err", "ms",
            "global_memory_ms", "plain_ms", "bound_ms", "bound_by", "plan",
            "mean_steps")
-    others = [b1_device, b1_host, *b1_trained]
-    b1["shapes"] = [{k: r[k] for k in sub} for r in (b1, *others)]
-    b1["mismatches"] += sum(r["mismatches"] for r in others)
-    b1["max_abs_err"] = max(r["max_abs_err"] for r in (b1, *others))
+    b1 = dict(b1_all[0])
+    b1["shapes"] = [{k: r[k] for k in sub} for r in b1_all]
+    b1["mismatches"] = sum(r["mismatches"] for r in b1_all)
+    b1["max_abs_err"] = max(r["max_abs_err"] for r in b1_all)
+    b2 = segment_sum_line(b2_shapes)
     kernels = [b1, b2]
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}

@@ -759,8 +759,10 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     and the next phase's edge capacity is the quantized count, its vertex
     capacity the quantized min(2 * alive, current).  A frontier that does
     not shrink makes the next phase the last.  The realized plan is
-    memoized per shape, and later calls replay it.  An explicit plan is a
-    list of (steps, edge_cap, vert_cap), caps as fractions of E / R
+    memoized per shape, and later calls replay it
+    (``stats["plan_replayed"]``): another graph of the same shape may
+    replay it too, at the cost of at most one fallback.  An explicit plan
+    is a list of (steps, edge_cap, vert_cap), caps as fractions of E / R
     (<= 1.0) or absolute rows; its last entry runs to completion.  A
     capacity overflow or an unfinished frontier falls back to the
     single-phase engine and drops the memo entry (``stats["fallback"]``).
@@ -855,6 +857,7 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
         stats["n_supersteps"] = total_steps
         stats["buckets"] = [e for _, e, _ in realized]
         stats["fallback"] = False
+        stats["plan_replayed"] = plan is None and not adaptive
     return order[:max_m], sal[:max_m], n_base
 
 

@@ -9,7 +9,7 @@ main_segment_ccm.cxx:96); labels not covered by any pick become BG_VAL when
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -24,6 +24,18 @@ def label_transform_single(tree: MergeTree, picks: Sequence[int],
     for p in picks:
         for leaf in tree.leaves_under(int(p)):
             lmap[int(tree.keys[leaf])] = k
+        k += 1
+    return lmap
+
+
+def label_transform_multi(trees: Sequence[MergeTree],
+                          picks: Sequence[Tuple[int, int]],
+                          key_to_assign: int = 1) -> dict:
+    lmap = {}
+    k = key_to_assign
+    for ti, ni in picks:
+        for leaf in trees[ti].leaves_under(int(ni)):
+            lmap[int(trees[ti].keys[leaf])] = k
         k += 1
     return lmap
 
@@ -52,8 +64,28 @@ def transform_image(labels, lmap: dict, mask=None, ignore_missing=True,
     return out.astype(np.int32)
 
 
-def final_segmentation(labels, tree: MergeTree, picks, mask=None,
-                       key_to_assign=1, ignore_missing=True):
-    """genFinalSegmentation for one tree (picks: [int])."""
-    lmap = label_transform_single(tree, picks, key_to_assign)
+def final_segmentation(labels, trees, picks, mask=None, key_to_assign=1,
+                       ignore_missing=True):
+    """genFinalSegmentation for one tree (picks: [int]) or several
+    (picks: [(tree, node)])."""
+    if isinstance(trees, MergeTree):
+        lmap = label_transform_single(trees, picks, key_to_assign)
+    else:
+        lmap = label_transform_multi(trees, picks, key_to_assign)
     return transform_image(labels, lmap, mask, ignore_missing)
+
+
+def relabel_image(labels, start=0):
+    """Consecutively relabel by decreasing region size (util/image.hxx:991-1024
+    relabelImage): labels sorted by size get start, start+1, ...; background
+    (BG_VAL) is preserved when start > 0."""
+    labels = np.asarray(labels)
+    uniq, counts = np.unique(labels, return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    lut = {}
+    k = start
+    for i in order:
+        lut[int(uniq[i])] = k
+        k += 1
+    out = np.vectorize(lut.get, otypes=[np.int64])(labels)
+    return out.astype(np.int32)

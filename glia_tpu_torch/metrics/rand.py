@@ -20,6 +20,11 @@ def _ratio(num, den):
     return float(Fraction(num, den))
 
 
+def rand_index_from_pairs(tp, tn, fp, fn):
+    """Traditional Rand index (stats.hxx:232-240)."""
+    return _ratio(tp + tn, tp + tn + fp + fn)
+
+
 def adapted_rand_from_pairs(tp, tn, fp, fn):
     """(precision, recall, error=1-F) as printed by eval_ri (main_eval_ri.cxx:50-55)."""
     prec = _ratio(tp, tp + fp)
@@ -28,7 +33,15 @@ def adapted_rand_from_pairs(tp, tn, fp, fn):
     return prec, rec, 1.0 - f
 
 
-def eval_ri(seg_slices, truth_slices, masks=None):
+def pair_f1_from_pairs(tp, tn, fp, fn):
+    """(f1, precision, recall) as used for merge/split labels (image_stats.hxx:222-245)."""
+    prec = _ratio(tp, tp + fp)
+    rec = _ratio(tp, tp + fn)
+    f = 2.0 * prec * rec / (prec + rec) if (prec + rec) else 0.0
+    return f, prec, rec
+
+
+def eval_ri(seg_slices, truth_slices, masks=None, adapted=True):
     """Reimplementation of the ``eval_ri`` binary (main_eval_ri.cxx:9-62).
 
     Accepts single images or lists of per-slice images; pair counts are
@@ -36,7 +49,7 @@ def eval_ri(seg_slices, truth_slices, masks=None):
     reference's Boost int512, code/type/big_num.hxx:10) before the final
     score.  Background *truth* pixels are excluded.
 
-    Returns (precision, recall, error).
+    Returns (precision, recall, error) when ``adapted`` else the Rand index.
     """
     if not isinstance(seg_slices, (list, tuple)):
         seg_slices = [seg_slices]
@@ -50,4 +63,6 @@ def eval_ri(seg_slices, truth_slices, masks=None):
         tn += b
         fp += c
         fn += d
-    return adapted_rand_from_pairs(tp, tn, fp, fn)
+    if adapted:
+        return adapted_rand_from_pairs(tp, tn, fp, fn)
+    return rand_index_from_pairs(tp, tn, fp, fn)

@@ -109,8 +109,12 @@ def predict_votes_np(model: ForestModel, X) -> np.ndarray:
     """Host reference evaluation: vote fraction per class [B, n_classes].
 
     Standard Breiman descent: go left iff x[bestvar] <= split
-    (classForest semantics)."""
+    (classForest semantics).  Samples of another width than the forest's
+    are refused (``check_width``); any object with the node arrays walks,
+    one without ``n_features`` under the split check only."""
     X = np.asarray(X, dtype=np.float64)
+    check_width(getattr(model, "n_features", None),
+                int(model.feature.max(initial=-1)), X.shape[1])
     B = X.shape[0]
     T = model.n_trees
     votes = np.zeros((B, model.n_classes), dtype=np.float64)

@@ -32,18 +32,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .constants import sdivide
 from .device import DeviceLike, resolve_device
 from .features.config import FeatureConfig
 from .features.hierarchical import TreeFeatures
 from .features.labels import bc_labels
-from .graph.merge import apply_merge_order
+from .graph.merge import apply_merge_order, greedy_merge_order
 from .graph.merge_bc_device import merge_order_bc_device
 from .graph.merge_device import greedy_merge_device
 from .graph.rag import build_rag
 from .graph.tree import build_tree, node_potentials
 from .infer.ccm import segment_ccm_picks
 from .infer.greedy import resolve_tree_greedy
-from .infer.segment import final_segmentation
+from .infer.segment import final_segmentation, relabel_image
 from .learn.predict import (feature_minmax, predict_logsig, predict_mlp2,
                             rescale_features)
 from .learn.sshmt import train_sshmt
@@ -61,18 +62,61 @@ FOREST_ARRAYS = ("feature", "threshold", "left", "right", "leaf_class",
                  "n_classes", "max_depth", "classes")
 
 
-def watershed(pb, level=0.0):
-    """gadget/main_watershed.cxx equivalent (C++ priority flood)."""
-    return watershed_native(np.asarray(pb, dtype=np.float32), level)
+def watershed(pb, level=0.0, relabel=False):
+    """gadget/main_watershed.cxx equivalent (C++ priority flood);
+    ``relabel`` numbers the regions 1, 2, ... by decreasing size."""
+    seg = watershed_native(np.asarray(pb, dtype=np.float32), level)
+    if relabel:
+        seg = relabel_image(seg, 1)
+    return seg
 
 
-def pre_merge(labels, pb, size_thresholds=(50,), rpb_threshold=0.5):
+def pre_merge(labels, pb, size_thresholds=(50,), rpb_threshold=0.5,
+              engine="native"):
     """gadget/main_pre_merge.cxx: greedily merge regions that are small
-    (< thresholds[0]) or medium (< thresholds[1]) with high mean pb, using
-    pooled-mean saliency (C++ serial loop).  Returns the relabeled image."""
+    (< thresholds[0]) or medium (< thresholds[1]) with high mean pb
+    (mostly-membrane fragments), using pooled-mean saliency.
+
+    engine="native" runs the C++ serial loop; engine="py" the Python heap
+    engine with the condition as a callback (graph.merge), the parity
+    oracle.  Returns the relabeled image after all permitted merges."""
     labels = np.asarray(labels)
     rag = build_rag(labels, contour_only=False)
-    order, _ = pre_merge_native(rag, pb, size_thresholds, rpb_threshold)
+    if engine == "native":
+        order, _ = pre_merge_native(rag, pb, size_thresholds, rpb_threshold)
+        return apply_merge_order(labels, order)
+    if engine != "py":
+        raise ValueError(f"pre_merge engine {engine!r} (native|py)")
+    pbf = np.asarray(pb, dtype=np.float64).ravel()
+
+    # per-region pb sums for the mean-pb condition, maintained over merges
+    pb_sum = {}
+    for i, k in enumerate(rag.keys):
+        s, e = int(rag.region_ptr[i]), int(rag.region_ptr[i + 1])
+        pb_sum[int(k)] = float(pbf[rag.region_pixels[s:e]].sum())
+
+    t0 = size_thresholds[0]
+    t1 = size_thresholds[1] if len(size_thresholds) > 1 else None
+
+    def fcond(u, v, sizes, _cache):
+        su, sv = sizes[u], sizes[v]
+        k0, k1 = (u, v) if su <= sv else (v, u)
+        s0, s1 = min(su, sv), max(su, sv)
+        if s0 < t0:
+            return True
+        if t1 is not None:
+            if s0 < t1 and sdivide(pb_sum[k0], s0, 0.0) > rpb_threshold:
+                return True
+            if s1 < t1 and sdivide(pb_sum[k1], s1, 0.0) > rpb_threshold:
+                return True
+        return False
+
+    def on_merge(r0, r1, r2):
+        pb_sum[r2] = pb_sum[r0] + pb_sum[r1]
+
+    order, _ = greedy_merge_order(
+        rag, pb, policy="mean", fcond=fcond, track_sizes=True,
+        on_merge=on_merge)
     return apply_merge_order(labels, order)
 
 

@@ -46,7 +46,10 @@ def test_scan_covers_the_package():
                 "models/rf_legacy.py", "tools.py", "graph/merge_bc.py",
                 "features/serialize.py", "metrics/device.py",
                 "ops/tree_scan.py", "learn/optim.py",
-                "infer/confidence.py"):
+                "infer/confidence.py", "features/adv_shape.py",
+                "graph/merge.py", "link3d/link.py", "pipeline3d.py",
+                "io/text.py", "io/image.py", "ops/image.py",
+                "cli/main.py"):
         assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
