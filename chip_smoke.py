@@ -11,6 +11,7 @@ classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
 and on ``engine="host"``; then forests trained by the port's CART trainer
 on every engine; then bench.py's merge flow on its 4096 x 4096 section;
+then the sharded path (BASELINE config #5) on torch.distributed ranks;
 then the stack paths at BASELINE config #2's scale (3D HMT on a volume of
 512 x 512 sections, LINK3D across its sections) and the file-bus CLI.
 Phases, one JSON line each:
@@ -82,9 +83,19 @@ Phases, one JSON line each:
           On the data section: merge_serial_device (float64, card = CPU
           bit for bit), mode="chunked" (card rows = CPU rows), the dense
           device metrics and the tree scan against the host's
+  slice_parallel
+          the sharded path (glia_tpu_torch.parallel) on torch.distributed:
+          dryrun.dryrun_multichip(4) on four gloo ranks sharing the card
+          (halo train step, sharded merge and exact saliencies, sharded
+          BC features, each held to the single-process path; the
+          gradient 4 x the single-process one, glia_tpu's factor); the
+          sharded merge at 4096^2 on four gloo ranks and on one NCCL rank
+          (rows equal to mode="fused"'s, float64 exact saliencies within
+          1e-12 of the C++ replay, the median wall of three calls); rank
+          0's B2 sums and B1 batches held to the plain versions
   slice_3d
           BASELINE config #2 (tools/run_3d_hmt.py's flow): a synthetic
-          volume of VOL_Z_RUN (64) sections of 512^2 with 4 cells a
+          volume of VOL_Z_RUN (52) sections of 512^2 with 4 cells a
           section (seed 17), a forest of 80 trees trained by hmt_train on
           a (z // 4) x 256^2 subvolume (seed 31); pipeline3d.hmt3d_segment
           with its defaults (the host engine, the forest walked on the
@@ -652,7 +663,11 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
     ``outputs``: a list that receives a copy of each listed call's sum."""
     import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
+    import glia_tpu_torch.parallel.bc_tree_shard as bts
+    import glia_tpu_torch.parallel.merge_shard as msh
+    import glia_tpu_torch.parallel.rag_shard as rsh
 
+    callers = (md, mbd, rsh, msh, bts)
     calls = []
     real = md.segment_sum_auto
 
@@ -670,11 +685,13 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
             outputs.append(out.clone())
         return out
 
-    md.segment_sum_auto = mbd.segment_sum_auto = record
+    for m in callers:
+        m.segment_sum_auto = record
     try:
         fn()
     finally:
-        md.segment_sum_auto = mbd.segment_sum_auto = real
+        for m in callers:
+            m.segment_sum_auto = real
     return calls
 
 
@@ -2053,7 +2070,245 @@ def phase_slice_merge(data, seg, rag, dev):
           "tree_scan": scan, "phase_s": time.perf_counter() - t_phase})
     if failures:
         raise AssertionError(f"slice_merge: {failures}")
-    return paths, shapes
+    fused = firsts["fused"]
+    bench = {"u": u, "v": v, "s": s, "c": c, "R": R, "E": E, "rag": rag_b,
+             "seg": seg_b, "tau": float(tau),
+             "fused_order": fused[0][:fused[2]].cpu().numpy(),
+             "fused_median_s": engines["fused"]["median_s"],
+             "fused_ms_median_s": engines["fused_ms"]["median_s"]}
+    return paths, shapes, bench
+
+
+# the sharded path (glia_tpu_torch.parallel): the ranks of its world-4
+# runs, the timed calls at bench.py's 4096^2 section, a spawn's time limit
+PARALLEL_WORLD = 4
+PARALLEL_REPS = 3
+PARALLEL_TIMEOUT_S = 600
+
+
+def parallel_bench_rank(mesh, case):
+    """One rank of the sharded merge at bench.py's 4096^2 section: a
+    first call whose kernel launches are counted in this process, then
+    PARALLEL_REPS timed calls (each must give the first call's rows), then
+    the float64 exact saliencies of the first call's order."""
+    from glia_tpu_torch.ops import cuda as kcuda
+    from glia_tpu_torch.parallel.merge_shard import (exact_saliency_sharded,
+                                                     merge_batched_sharded)
+
+    u, v, s, c, R = (case[k] for k in ("u", "v", "s", "c", "R"))
+    st = {}
+    kcuda.reset_launches()
+    t = time.perf_counter()
+    order, _, n = merge_batched_sharded(u, v, s, c, R, mesh, dmax=4,
+                                        stats=st)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = dict(kcuda.launches)
+    reps, same = [], True
+    for _ in range(PARALLEL_REPS):
+        t = time.perf_counter()
+        again, _, n2 = merge_batched_sharded(u, v, s, c, R, mesh, dmax=4)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t)
+        same = same and n2 == n and torch.equal(again, order)
+    rows = order[:n].cpu().numpy()
+    t = time.perf_counter()
+    exact = exact_saliency_sharded(u, v, s, c, rows, R, mesh,
+                                   dtype=torch.float64)
+    exact_s = time.perf_counter() - t
+    return {"rows": rows if mesh.rank == 0 else None, "n": n, "stats": st,
+            "first_s": first_s, "reps_s": reps, "repeats_identical": same,
+            "exact": exact if mesh.rank == 0 else None, "exact_s": exact_s,
+            "launches": launches, "device": str(mesh.device),
+            "backend": mesh.backend}
+
+
+def parallel_dryrun_rank(mesh, case):
+    """One rank of dryrun.dryrun_multichip: its three stages
+    (dryrun._dryrun_rank).  On rank 0 every B2 sum and every B1 batch of
+    them is captured and held to the plain versions on the card; its
+    result adds ``held``: what was held and the first sum of each
+    (rank, width, sorted) kind for timing."""
+    from glia_tpu_torch import dryrun
+    from glia_tpu_torch.models.forest import forest_votes_torch
+    from glia_tpu_torch.ops import cuda as kcuda
+
+    if mesh.rank:
+        return dryrun._dryrun_rank(mesh, case)
+    outs, res = [], {}
+    sums, b1_calls = capture_calls(kcuda, "forest_votes_cuda", lambda: (
+        capture_segment_sums(lambda: res.update(
+            dryrun._dryrun_rank(mesh, case)), outputs=outs)))
+    held = hold_segment_sums("parallel_rank0", sums, outs)
+    mismatches = sum(int((out != forest_votes_torch(args[0], args[1])).sum())
+                     for args, out in b1_calls)
+    kinds = {}
+    for values, ids, S, is_sorted in sums:
+        key = (values.ndim, tuple(values.shape[1:]), is_sorted)
+        if key not in kinds:
+            kinds[key] = (values.cpu().numpy(), ids.cpu().numpy(), S,
+                          is_sorted)
+    res["held"] = {
+        "b2": held, "b1_batches": len(b1_calls),
+        "b1_rows": [int(args[0].shape[0]) for args, _ in b1_calls],
+        "b1_mismatches": mismatches, "b2_samples": list(kinds.values())}
+    return res
+
+
+def sum_launches(per_rank):
+    """Kernel launches summed over the ranks' counts."""
+    out = {}
+    for counts in per_rank:
+        for k, n in counts.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def float32_ties(s, c):
+    """Edges whose float32 mean shares its bits with another edge's."""
+    bits = (np.asarray(s) / np.maximum(np.asarray(c), 1.0)).astype(
+        np.float32).view(np.int32)
+    _, counts = np.unique(bits, return_counts=True)
+    return int(counts[counts > 1].sum())
+
+
+def phase_slice_parallel(bench, dev, seed):
+    """The sharded path (glia_tpu_torch.parallel) on the card.
+
+    (a) dryrun.dryrun_multichip(PARALLEL_WORLD) on gloo ranks sharing the
+        card (glia_tpu's dryrun RAG, 512^2): the halo train step (loss
+        within 1e-4 of the single-process loss, the gradient
+        PARALLEL_WORLD x the single-process gradient within 1e-5, 10 more
+        steps lower the loss), the sharded merge (rows equal to
+        merge_batched_device(mode="fused"), exact saliencies = host replay,
+        cut VI 0) and the sharded BC features (allclose to TreeFeatures,
+        scores = the host walk); kernel launches summed over the ranks;
+        B1 against the plain walk at the BC batch; in the same ranks,
+        rank 0's B2 sums and B1 batches of the three stages held to the
+        plain versions on the card (parallel_dryrun_rank), B2 timed at
+        each kind of sum.
+    (b) merge_batched_sharded at bench.py's 4096^2 section at
+        PARALLEL_WORLD gloo ranks and at 1 rank on nccl: rows equal to
+        mode="fused"'s on the card (or, where a float32 tie between
+        distinct pairs parts them, equal merge counts and threshold cuts
+        at VI 0, the ties and the first parting row printed), repeats
+        identical, float64 exact saliencies within EXACT_F64_RTOL of the
+        C++ replay; stats and the median wall of PARALLEL_REPS calls
+        beside fused's.
+
+    Returns (launch counts per path, B1's line at the BC batch, B2's
+    per-shape results)."""
+    from glia_tpu_torch import dryrun
+    from glia_tpu_torch.graph import merge_device as md
+    from glia_tpu_torch.graph.merge import apply_merge_order
+    from glia_tpu_torch.metrics import eval_vi
+    from glia_tpu_torch.parallel.launch import spawn_ranks
+
+    t_phase = time.perf_counter()
+    paths, failures = {}, []
+
+    # (a) the dryrun at PARALLEL_WORLD ranks on the card
+    rep = dryrun.dryrun_multichip(PARALLEL_WORLD, device=dev,
+                                  backend="gloo",
+                                  timeout_s=PARALLEL_TIMEOUT_S,
+                                  rank_fn=parallel_dryrun_rank)
+    held = rep["ranks"][0]["held"]
+    for stage in ("train", "merge", "bc"):
+        paths[f"parallel_{stage}"] = sum_launches(
+            r[stage] for r in rep["launches_by_rank"])
+    require_launches(paths, "parallel_train", ["segment_sum"])
+    require_launches(paths, "parallel_merge", ["segment_sum"])
+    require_launches(paths, "parallel_bc", ["segment_sum", "forest_votes"])
+    b1 = phase_kernel(torch.as_tensor(rep["bc_feats"], device=dev).float(),
+                      rep["model"], seed, path="parallel_bc")
+    emit({"phase": "slice_parallel", "part": "dryrun",
+          **{k: rep[k] for k in (
+              "backend", "world", "n_regions", "n_edges", "halo_rows",
+              "wall_s", "loss", "loss_single", "loss_rel", "losses",
+              "grad_rel", "merges", "merge_stats", "cut_vi", "bc_level",
+              "bc_merges", "bc_feats_max_abs_err", "seconds_by_rank",
+              "host_staged_bytes")},
+          "launches": {p: paths[p] for p in paths}})
+
+    # (b) bench.py's section, PARALLEL_WORLD gloo ranks and 1 nccl rank
+    u, v, s, c, R, E = (bench[k] for k in ("u", "v", "s", "c", "R", "E"))
+    case = {"u": u, "v": v, "s": s, "c": c, "R": R}
+    fused = bench["fused_order"]
+    rag_b, seg_b, tau = bench["rag"], bench["seg"], bench["tau"]
+
+    def cut(rows):
+        keys = md.order_to_keys(rows, len(rows), rag_b)
+        ex = md.replay_exact_saliency(u, v, s, c, rows, engine="native")
+        return apply_merge_order(seg_b, keys[md.threshold_cut(keys, ex,
+                                                              tau)]), ex
+
+    cut_fused, _ = cut(fused)
+    runs = {}
+    for name, world, backend in (("w4_gloo", PARALLEL_WORLD, "gloo"),
+                                 ("w1_nccl", 1, "nccl")):
+        t = time.perf_counter()
+        res = spawn_ranks(parallel_bench_rank, world, backend, "cuda",
+                          args=(case,), timeout_s=PARALLEL_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        r0 = res[0]
+        rows = r0["rows"]
+        paths[f"parallel_merge_4096_{name}"] = sum_launches(
+            r["launches"] for r in res)
+        require_launches(paths, f"parallel_merge_4096_{name}",
+                         ["segment_sum"])
+        cut_sh, host64 = cut(rows)
+        gap64 = rel_gap(r0["exact"], host64)
+        same_rows = len(rows) == len(fused) and np.array_equal(rows, fused)
+        line = {"world": world, "backend": backend,
+                "devices": sorted({r["device"] for r in res}),
+                "merges": r0["n"], "fused_merges": int(len(fused)),
+                "rows_equal_fused": same_rows,
+                "cut_vi_vs_fused": eval_vi(cut_sh, cut_fused)[2],
+                "repeats_identical": all(r["repeats_identical"]
+                                         for r in res),
+                "f64_exact_rel_gap_vs_replay": gap64,
+                "first_s": r0["first_s"], "reps_s": r0["reps_s"],
+                "median_s": float(np.median(r0["reps_s"])),
+                "exact_s": r0["exact_s"], "spawn_wall_s": wall,
+                "stats": r0["stats"],
+                "launches": paths[f"parallel_merge_4096_{name}"]}
+        if not same_rows:
+            n = min(len(rows), len(fused))
+            part = np.nonzero((rows[:n] != fused[:n]).any(axis=1))[0]
+            line.update(float32_ties=float32_ties(s, c),
+                        first_parting_row=int(part[0]) if len(part) else n,
+                        rows_parting=int(len(part)))
+            if r0["n"] != len(fused) or line["cut_vi_vs_fused"] != 0.0:
+                failures.append(f"{name}: {r0['n']} merges, cut VI "
+                                f"{line['cut_vi_vs_fused']} against fused")
+        if not line["repeats_identical"]:
+            failures.append(f"{name}: repeated calls differ")
+        if gap64 > EXACT_F64_RTOL:
+            failures.append(f"{name}: float64 exact saliencies differ from "
+                            f"the C++ replay by {gap64}")
+        runs[name] = line
+    emit({"phase": "slice_parallel", "part": "merge_4096", "R": R, "E": E,
+          "runs": runs, "fused_median_s": bench["fused_median_s"],
+          "fused_ms_median_s": bench["fused_ms_median_s"]})
+
+    # rank 0's B2 sums and B1 batches of (a) against the plain versions
+    if held["b1_mismatches"] or not held["b1_batches"]:
+        failures.append(f"B1 on rank 0's batches: {held['b1_mismatches']} "
+                        f"vote fractions differ in {held['b1_batches']} "
+                        f"batches")
+    b2 = []
+    for i, (values, ids, S, is_sorted) in enumerate(held["b2_samples"]):
+        b2.append(check_segment_sum(
+            f"parallel_rank0_{i}", torch.as_tensor(values, device=dev),
+            torch.as_tensor(ids, device=dev), S, is_sorted))
+    emit({"phase": "slice_parallel", "part": "rank0_kernels",
+          "b2": held["b2"], "b1_batches": held["b1_batches"],
+          "b1_rows": held["b1_rows"],
+          "b1_mismatches": held["b1_mismatches"],
+          "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_parallel: {failures}")
+    return paths, b1, b2
 
 
 # BASELINE config #2 (BASELINE.json:8; tools/run_3d_hmt.py:52-96): a
@@ -2064,10 +2319,12 @@ def phase_slice_merge(data, seg, rag, dev):
 # proportion to Z) and the 512^2 sections.
 VOL_Z = 100
 # the depth the script runs at: at 100 sections slice_3d took 341 s of
-# the script's budget of about 240 s (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md section 4), the host's pre-merge 94-102 s of each of its two
-# segmentations
-VOL_Z_RUN = 64
+# the script's budget of about 240 s, the host's pre-merge 94-102 s of
+# each of its two segmentations; at 64 sections the whole script took
+# 776 s on one host and 1048 s of its 1200 s limit on a slower one
+# (every host stage 1.3-1.9x), slice_3d 237 / 346 s of it (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 4)
+VOL_Z_RUN = 52
 VOL_SIDE = 512
 VOL_CELLS = 400
 VOL_TREES = 80
@@ -2605,10 +2862,15 @@ def main(argv=None):
     forest_paths, b1_trained = phase_slice_forest(
         data, seg, dev, forest_inputs, args.seed)
     paths.update(forest_paths)
-    merge_paths, b2_merge = phase_slice_merge(data, seg, rag, dev)
+    merge_paths, b2_merge, bench = phase_slice_merge(data, seg, rag, dev)
     paths.update(merge_paths)
     b1_all = [b1, b1_device, b1_host, *b1_trained]
     b2_shapes += b2_merge
+    par_paths, b1_par, b2_par = phase_slice_parallel(bench, dev, args.seed)
+    del bench
+    paths.update(par_paths)
+    b1_all.append(b1_par)
+    b2_shapes += b2_par
     vol_paths, b1_3d, b2_3d, vol = phase_slice_3d(dev, VOL_Z_RUN, args.seed)
     paths.update(vol_paths)
     b1_all += b1_3d

@@ -457,6 +457,95 @@ def _phase_static(stat_fn, E, R_loc, R_glob, dmax, with_vsz,
                         R_glob=R_glob)
 
 
+def _contract_chains(parent, has, vbits, dmax: int, pack_hr: bool,
+                     cap: int, fresh0: int):
+    """Chain contraction of one superstep, shared by ``fused_superstep``
+    and the sharded engine (parallel/merge_shard.py).
+
+    ``parent`` [n_ids]: the other end of each vertex's minimum incident
+    edge (the vertex itself where ``has`` is False); ``vbits``: that
+    edge's statistic bits.  Attaches vertices up to ``dmax`` hops below
+    the canonical root of each mutual-minimum 2-cycle, orders them by
+    (component, edge stat, hop, id), records the first ``cap`` and
+    contracts each component into its last recorded fresh id
+    (``fresh0`` + its rank).  Returns (vs, rt_s, grank, first_in_run, ok,
+    lut): the sorted vertices, each row's root (n_ids for none), its rank
+    among the attaches, whether it starts its chain, whether it is
+    recorded, and the id lut [n_ids]."""
+    n_ids = parent.shape[0]
+    dev = parent.device
+    vid = torch.arange(n_ids, device=dev)
+
+    # --- roots: canonical vertex of each mutual-minimum 2-cycle ---
+    is_root = (parent[parent] == vid) & (vid < parent)
+
+    # --- depth-limited hop counts + root propagation ---
+    inf_h = dmax + 1
+    if pack_hr:
+        W = n_ids + 1
+        known_lim = inf_h * W
+        code = torch.where(is_root, vid, known_lim + n_ids)
+        for _ in range(dmax):
+            cp = code[parent]
+            code = torch.where(code < known_lim, code,
+                               torch.where(cp < known_lim, cp + W, code))
+        h = code // W
+        rt = torch.where(code < known_lim, code % W, n_ids)
+    else:
+        h = torch.where(is_root, 0, inf_h)
+        rt = torch.where(is_root, vid, n_ids)
+        for _ in range(dmax):
+            hp = h[parent]
+            h = torch.minimum(h, torch.where(hp < inf_h, hp + 1, inf_h))
+            rt = torch.where(rt < n_ids, rt, rt[parent])
+    attach = (h >= 1) & (h <= dmax) & has
+
+    # --- order vertices by (component, edge stat, hop, id) ---
+    # stat(m(child)) >= stat(m(parent)) always (m(v) is incident to
+    # parent(v), whose m is ITS minimum incident edge), so stat-major
+    # order still attaches parents before children (hop breaks stat
+    # ties) AND makes each chain monotone non-decreasing in stat -- the
+    # monotonized threshold cut then judges every attach by exactly its
+    # own edge's statistic, like the serial order.
+    rt_key = torch.where(attach | is_root, rt, n_ids)
+    b_key = torch.where(attach, vbits, -2 ** 31) + 2 ** 31   # roots first
+    h_key = torch.where(attach | is_root, h, inf_h)
+    # the vertex id is the last key: the sorts are stable and start from
+    # the vertices in id order
+    if pack_hr:
+        key = (rt_key * 2 ** 32 + b_key) * (inf_h + 1) + h_key
+        vs = torch.sort(key, stable=True).indices
+    else:
+        vs = torch.sort(h_key, stable=True).indices
+        vs = vs[torch.sort(b_key[vs], stable=True).indices]
+        vs = vs[torch.sort(rt_key[vs], stable=True).indices]
+    rt_s = rt_key[vs]
+    h_s = h_key[vs]
+    is_merge = (rt_s < n_ids) & (h_s >= 1)              # attached rows
+    grank = torch.cumsum(is_merge.long(), 0) - 1
+    first = _first_of_runs(rt_s)
+    true1 = torch.ones(1, dtype=torch.bool, device=dev)
+    first_in_run = is_merge & (torch.cat([true1, ~is_merge[:-1]]) | first)
+    ok = is_merge & (grank < cap)
+
+    # --- component final id lut (last merge of each run), local ids ---
+    run_id = torch.cumsum(first.long(), 0) - 1
+    last_rank = torch.full((n_ids + 1,), -1, dtype=torch.int64, device=dev)
+    last_rank.scatter_reduce_(0, run_id, torch.where(ok, grank, -1), "amax",
+                              include_self=True)
+    last = last_rank[run_id]
+    # only vertices whose own attach was RECORDED (ok is a prefix of the
+    # global merge ranks, hence of each run's hop-ordered chain) plus the
+    # run root are contracted; overflowed attaches stay put
+    contracted = (rt_s < n_ids) & (last >= 0) & (ok | (h_s == 0))
+    # (id n_ids-1 is a safe dump slot: ids allocated so far are
+    # < fresh0 < n_ids - 1 while the loop still runs)
+    lut = vid.clone()
+    lut[torch.where(contracted, vs, n_ids - 1)] = torch.where(
+        contracted, fresh0 + last, n_ids - 1)
+    return vs, rt_s, grank, first_in_run, ok, lut
+
+
 def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
                     alive, order, sal, n_m_base: int = 0, g_of=None):
     """One superstep of the fused engine, a plain function on tensors.
@@ -504,64 +593,13 @@ def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
     mu, mv = muv[:, 0], muv[:, 1]
     parent = torch.where(m < E, torch.where(mu == vid, mv, mu), vid)
 
-    # --- roots: canonical vertex of each mutual-minimum 2-cycle ---
-    is_root = (parent[parent] == vid) & (vid < parent)
-
-    # --- depth-limited hop counts + root propagation ---
-    if st.pack_hr:
-        W = n_ids + 1
-        inf_h = dmax + 1
-        known_lim = inf_h * W
-        code = torch.where(is_root, vid, known_lim + n_ids)
-        for _ in range(dmax):
-            cp = code[parent]
-            code = torch.where(code < known_lim, code,
-                               torch.where(cp < known_lim, cp + W, code))
-        h = code // W
-        rt = torch.where(code < known_lim, code % W, n_ids)
-    else:
-        inf_h = n_ids + 7
-        h = torch.where(is_root, 0, inf_h)
-        rt = torch.where(is_root, vid, n_ids)
-        for _ in range(dmax):
-            hp = h[parent]
-            h = torch.minimum(h, torch.where(hp < inf_h, hp + 1, inf_h))
-            rt = torch.where(rt < n_ids, rt, rt[parent])
-    attach = (h >= 1) & (h <= dmax) & (m < E)
-
-    # --- order vertices by (component, edge stat, hop, id) ---
-    # stat(m(child)) >= stat(m(parent)) always (m(v) is incident to
-    # parent(v), whose m is ITS minimum incident edge), so stat-major
-    # order still attaches parents before children (hop breaks stat
-    # ties) AND makes each chain monotone non-decreasing in stat -- the
-    # monotonized threshold cut then judges every attach by exactly its
-    # own edge's statistic, like the serial order.
-    bits_pad = torch.cat([bits, bits.new_full((1,), BIG32)])
-    mbits = bits_pad[m]
-    rt_key = torch.where(attach | is_root, rt, n_ids)
-    b_key = torch.where(attach, mbits, -2 ** 31) + 2 ** 31   # roots first
-    h_key = torch.where(attach | is_root, h, inf_h)
-    # the vertex id is the last key: the sorts are stable and start from
-    # the vertices in id order
-    if st.pack_hr:
-        key = (rt_key * 2 ** 32 + b_key) * (inf_h + 1) + h_key
-        vs = torch.sort(key, stable=True).indices
-    else:
-        vs = torch.sort(h_key, stable=True).indices
-        vs = vs[torch.sort(b_key[vs], stable=True).indices]
-        vs = vs[torch.sort(rt_key[vs], stable=True).indices]
-    rt_s = rt_key[vs]
-    h_s = h_key[vs]
-    is_merge = (rt_s < n_ids) & (h_s >= 1)              # attached rows
-    grank = torch.cumsum(is_merge.long(), 0) - 1
-    first = _first_of_runs(rt_s)
-    true1 = torch.ones(1, dtype=torch.bool, device=dev)
-    first_in_run = is_merge & (torch.cat([true1, ~is_merge[:-1]]) | first)
+    mbits = torch.cat([bits, bits.new_full((1,), BIG32)])[m]
+    # two bounds: the phase's local id space and the global order buffer
+    cap = min(max_m - n_loc, max_m_glob - n_m_base - n_loc)
+    vs, rt_s, grank, first_in_run, ok, lut = _contract_chains(
+        parent, m < E, mbits, dmax, st.pack_hr, cap, R + n_loc)
     r2 = Rb + n_loc + grank                              # global ids
     r0 = torch.where(first_in_run, gfun(rt_s), r2 - 1)
-    # two bounds: the phase's local id space and the global order buffer
-    ok = (is_merge & (n_loc + grank < max_m)
-          & (n_m_base + n_loc + grank < max_m_glob))
     n_new = ok.sum()
 
     # saliency: the attached vertex's own selected edge's statistic
@@ -574,23 +612,6 @@ def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
     rows = torch.stack([r0, gfun(vs), r2], dim=1)
     order[slot] = torch.where(ok[:, None], rows, -1)
     sal[slot] = torch.where(ok, sal_rows.to(sal.dtype), 0.0)
-
-    # --- component final id lut (last merge of each run), local ids ---
-    run_id = torch.cumsum(first.long(), 0) - 1
-    last_rank = torch.full((n_ids + 1,), -1, dtype=torch.int64, device=dev)
-    last_rank.scatter_reduce_(0, run_id, torch.where(ok, grank, -1), "amax",
-                              include_self=True)
-    last = last_rank[run_id]
-    fin = R + n_loc + last
-    # only vertices whose own attach was RECORDED (ok is a prefix of the
-    # global merge ranks, hence of each run's hop-ordered chain) plus the
-    # run root are contracted; overflowed attaches stay put
-    contracted = (rt_s < n_ids) & (last >= 0) & (ok | (h_s == 0))
-    # (id n_ids-1 is a safe dump slot: ids allocated so far are
-    # < R + n_loc < n_ids - 1 while the loop still runs)
-    lut = vid.clone()
-    lut[torch.where(contracted, vs, n_ids - 1)] = torch.where(
-        contracted, fin, n_ids - 1)
 
     # consumed edges: each attached-and-recorded vertex's m edge
     used = torch.zeros(E + 1, dtype=torch.bool, device=dev)
@@ -954,9 +975,11 @@ def merge_batched_device_hist_minsize(u, v, h, sizes, n_regions,
 _EXACT_SAL_L = {}
 
 
-def _exact_saliency_pass(u, v, s, c, order, R, L):
-    """One LCA pass at depth capacity ``L`` (see exact_saliency_device).
-    Returns (stat [M], converged flag as a tensor)."""
+def _lca_sums(u, v, s, c, order, R, L):
+    """The LCA pass at depth capacity ``L`` (see exact_saliency_device):
+    per merge node the (s, c) sums of the edges whose endpoints' tree LCA
+    it is.  Returns (s_tot [R + M + 1], c_tot [R + M + 1], r2 [M],
+    ok_row [M], converged flag as a tensor); slot R + M is the discard."""
     E, M = u.shape[0], order.shape[0]
     dev = u.device
     # table slot n_ids is a dummy: padded order rows (r2 < 0, the fused
@@ -1010,11 +1033,23 @@ def _exact_saliency_pass(u, v, s, c, order, R, L):
                              n_ids + 1, sorted=True)
     c_tot = segment_sum_auto(torch.where(valid, c, 0.0)[by_seg], seg,
                              n_ids + 1, sorted=True)
+    return s_tot, c_tot, r2, ok_row, converged
+
+
+def _pooled_stat(s_tot, c_tot, r2, ok_row):
+    """Pooled mean s / c of each merge row; NaN where its boundary is
+    empty or the row is padding."""
     cm = c_tot[r2]
     sm = s_tot[r2]
-    stat = torch.where(ok_row & (cm > 0), sm / torch.clamp(cm, min=1.0),
+    return torch.where(ok_row & (cm > 0), sm / torch.clamp(cm, min=1.0),
                        float("nan"))
-    return stat, converged
+
+
+def _exact_saliency_pass(u, v, s, c, order, R, L):
+    """One LCA pass at depth capacity ``L`` (see exact_saliency_device).
+    Returns (stat [M], converged flag as a tensor)."""
+    s_tot, c_tot, r2, ok_row, converged = _lca_sums(u, v, s, c, order, R, L)
+    return _pooled_stat(s_tot, c_tot, r2, ok_row), converged
 
 
 def exact_saliency_device(u, v, s, c, order, n_regions,

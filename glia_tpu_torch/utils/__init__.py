@@ -1,0 +1,3 @@
+from .checkpoint import StageStore, restore_params, save_params
+from .jobs import execute
+from .profiling import StageTimer, block_and_time, trace

@@ -1,9 +1,9 @@
 """The port and its chip smoke script import nothing of JAX or glia_tpu,
-nor sklearn or optax, which the card machine does not have.
+nor sklearn, optax or orbax, which the card machine does not have.
 
 An AST scan of every module of glia_tpu_torch/ and of chip_smoke.py for
 ``import``/``from`` statements (at any depth, relative imports resolved)
-naming jax, jaxlib, glia_tpu, sklearn or optax.
+naming jax, jaxlib, glia_tpu, sklearn, optax or orbax.
 """
 
 import ast
@@ -12,7 +12,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "glia_tpu", "sklearn", "optax"}
+FORBIDDEN = {"jax", "jaxlib", "glia_tpu", "sklearn", "optax", "orbax"}
 FILES = sorted((ROOT / "glia_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -49,7 +49,14 @@ def test_scan_covers_the_package():
                 "infer/confidence.py", "features/adv_shape.py",
                 "graph/merge.py", "link3d/link.py", "pipeline3d.py",
                 "io/text.py", "io/image.py", "ops/image.py",
-                "cli/main.py"):
+                "cli/main.py", "ops/pack.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/launch.py",
+                "parallel/partition.py", "parallel/rag_shard.py",
+                "parallel/halo.py", "parallel/train.py",
+                "parallel/merge_shard.py", "parallel/bc_tree_shard.py",
+                "dryrun.py", "utils/__init__.py", "utils/profiling.py",
+                "utils/checkpoint.py", "utils/jobs.py",
+                "examples/run_hmt_512.py"):
         assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
