@@ -39,7 +39,8 @@ Phases, one JSON line each:
           and median with the device forest walk: launch counts of both
           kernels, stage times, the merge loop's profile, the exact
           saliencies against the serial replay, and two more runs of the
-          merge that must give identical rows and saliencies
+          merge that must replay its plan's CUDA graph and give the main
+          path's rows and identical saliencies
   slice_train
           four more sections: MLP2 (16, 8) trained on two, then
           hmt_segment(engine="device") with it; SSHMT Logsig trained on
@@ -75,13 +76,17 @@ Phases, one JSON line each:
           merge_batched_device_exact (mode="fused_ms", the multi-phase
           engine, and the exact saliencies on the card) and the same flow
           with mode="fused", each a first call and timed repeats (edges/s,
-          supersteps, buckets, kernels per superstep, busy share); both
-          modes' threshold cuts at VI 0 to each other, repeats identical,
-          float64 exact saliencies within 1e-12 of the C++ replay, no
-          fallback, or the script fails; kernel B2 at the engine's
-          shapes; the sparse-pair metrics of the cut against the host's.
-          On the data section: merge_serial_device (float64, card = CPU
-          bit for bit), mode="chunked" (card rows = CPU rows), the dense
+          supersteps, buckets, kernels per superstep, busy share); the
+          fused_ms repeats replay the plan's CUDA graph (capture seconds,
+          pool bytes, B2 launches a replay, replay wall against the first
+          call's); both modes' threshold cuts at VI 0 to each other,
+          repeats identical, float64 exact saliencies within 1e-12 of the
+          C++ replay, no fallback, or the script fails; kernel B2 at the
+          engine's shapes; the sparse-pair metrics of the cut against the
+          host's.  On the data section: merge_serial_device (float64, card
+          = CPU bit for bit), mode="chunked" (card rows = CPU rows), the
+          plan store across two processes (the second's first call
+          replays the stored plan with the first's rows), the dense
           device metrics and the tree scan against the host's
   slice_parallel
           the sharded path (glia_tpu_torch.parallel) on torch.distributed:
@@ -660,7 +665,11 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
     non-decreasing (the kernel takes the caller's word for it).
     ``keep=False`` only checks and counts: the list holds None.
     ``first``: only the first so many calls are checked and listed.
-    ``outputs``: a list that receives a copy of each listed call's sum."""
+    ``outputs``: a list that receives a copy of each listed call's sum.
+    The memoized merge plans are forgotten first, so that a multi-phase
+    merge in ``fn`` runs its discovery supersteps eagerly, as Python calls
+    (a plan's CUDA graph replays its sums without any; the checks above
+    read the card from the host and cannot be captured)."""
     import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
     import glia_tpu_torch.parallel.bc_tree_shard as bts
@@ -672,6 +681,9 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
     real = md.segment_sum_auto
 
     def record(values, seg_ids, n_segments, sorted=False):
+        if torch.cuda.is_current_stream_capturing():
+            raise AssertionError("a segment sum to record inside a CUDA "
+                                 "graph capture")
         if first is not None and len(calls) >= first:
             return real(values, seg_ids, n_segments, sorted=sorted)
         if sorted and bool((seg_ids[1:] < seg_ids[:-1]).any()):
@@ -685,6 +697,10 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
             outputs.append(out.clone())
         return out
 
+    # the memoized plans, last-phase counts and depth capacities go: each
+    # shape's next merge discovers again (the captured graphs stay)
+    for memo in (md._PLAN_MEMO, md._PLAN_LAST_STEPS, md._EXACT_SAL_L):
+        memo.clear()
     for m in callers:
         m.segment_sum_auto = record
     try:
@@ -988,17 +1004,24 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
             raise AssertionError("segment_sum should launch in every "
                                  "superstep")
 
-        # the merge alone, twice more: do two card runs agree, and with
-        # the main path's order
-        runs = [md.greedy_merge_device(rag, pb, policy=policy, device=dev)
-                for _ in range(2)]
+        # the merge alone, twice more, after the main path's call on this
+        # shape: both run its memoized plan as a CUDA graph (the first may
+        # capture it); do they agree, and with the main path's order
+        rerun_stats = [{}, {}]
+        runs = [md.greedy_merge_device(rag, pb, policy=policy, device=dev,
+                                       stats=st) for st in rerun_stats]
         rerun = agreement(*runs[0], *runs[1])
-        rerun["order_equals_main_path"] = bool(
-            np.array_equal(runs[0][0], info["order"]))
+        rerun["order_equals_main_path"] = all(
+            np.array_equal(o, info["order"]) for o, _ in runs)
+        rerun["plan_graph"] = [st.get("plan_graph") for st in rerun_stats]
         if not (rerun["identical"] and rerun["order_equals_main_path"]):
             raise AssertionError(f"card runs of engine=\"device\" (policy "
                                  f"{policy}) differ in rows or saliencies: "
                                  f"{rerun}")
+        if rerun["plan_graph"] != [True, True]:
+            raise AssertionError(f"engine=\"device\" (policy {policy}): a "
+                                 f"merge after the first on its shape did "
+                                 f"not replay a CUDA graph: {rerun}")
 
         # the merge loop alone, in the path's mode="fused_ms": wall, then
         # kernels and busy time profiled
@@ -1011,6 +1034,7 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
             torch.cuda.synchronize()
 
         loop_stats = {}
+        merge_loop({})           # the merge alone's graph, captured once
         t = time.perf_counter()
         merge_loop(loop_stats)
         loop_s = time.perf_counter() - t
@@ -1018,6 +1042,7 @@ def phase_slice_device(data, seg, rag, dev, seed, n_trees, max_depth):
         n_steps = loop_stats["n_supersteps"]
         prof.update(
             supersteps=n_steps, buckets=loop_stats["buckets"],
+            plan_graph=loop_stats["plan_graph"],
             wall_ms_unprofiled=loop_s * 1e3,
             kernels_per_superstep=prof["kernels_launched"] / n_steps,
             busy_share_of_unprofiled_wall=prof["device_busy_ms"]
@@ -1727,21 +1752,26 @@ def phase_slice_merge(data, seg, rag, dev):
     - the host serial mean greedy (native.greedy_merge_native), bench.py's
       baseline; then merge_batched_device_exact (mode="fused_ms" and the
       exact saliencies on the card, the main path: one first call, whose
-      launches are counted, then MERGE_REPS timed calls) and the same flow
-      with mode="fused": edges/s as bench.py defines it, (E + merges) /
-      median wall, supersteps, buckets, kernels per superstep and device
-      busy share.  Hard: no fallback; both modes give the same number of
-      merges and threshold cuts (at k = R - n_cells, on their exact
-      saliencies) at VI 0.0 to each other; every call of an engine gives
-      the first call's rows and saliency bits; in float64 the exact
-      saliencies are within EXACT_F64_RTOL of the C++ replay.
+      launches are counted, then MERGE_REPS timed calls, which replay the
+      plan program's CUDA graph, the first of them capturing it, the
+      second's launches counted) and the same flow with mode="fused":
+      edges/s as bench.py defines it, (E + merges) / median wall,
+      supersteps, buckets, kernels per superstep and device busy share.
+      Hard: no fallback; both modes give the same number of merges and
+      threshold cuts (at k = R - n_cells, on their exact saliencies) at
+      VI 0.0 to each other; every call of an engine gives the first
+      call's rows and saliency bits; every fused_ms repeat replays the
+      one graph, whose tally of launches equals a counted replay's; in
+      float64 the exact saliencies are within EXACT_F64_RTOL of the C++
+      replay.
     - B2 against its plain version at the multi-phase engine's shapes
       (each phase's dedupe, the LCA sums) and at the new engines' and
       metrics' shapes.
     - on the data section: merge_serial_device in float64 (rows and
       saliencies equal to the CPU's bit for bit, hard; rows against the
       C++ serial engine, printed); mode="chunked" for mean and median in
-      float32 (rows equal to the CPU's, hard); vi_device /
+      float32 (rows equal to the CPU's, hard); the plan store
+      (plan_store_check, hard); vi_device /
       adapted_rand_device against the host metrics (METRIC_RTOL, hard);
       node_region_stats_device against the host's interval sums (minima,
       maxima and counts equal, sums within 1e-12 of the largest, hard).
@@ -1816,12 +1846,20 @@ def phase_slice_merge(data, seg, rag, dev):
         t = time.perf_counter()
         first = counted(f"merge_{mode}", lambda: run_exact(mode, st))
         first_s = time.perf_counter() - t
-        reps, same = [], True
-        for _ in range(MERGE_REPS):
+        reps, same, rep_stats = [], True, []
+        for i in range(MERGE_REPS):
+            rst = {}
             t = time.perf_counter()
-            out = run_exact(mode, {})
+            if mode == "fused_ms" and i == 1:
+                # one replay of the plan's graph, its launches counted as a
+                # path of their own
+                out = counted("merge_fused_ms_graph",
+                              lambda: run_exact(mode, rst))
+            else:
+                out = run_exact(mode, rst)
             torch.cuda.synchronize()
             reps.append(time.perf_counter() - t)
+            rep_stats.append(rst)
             same = same and same_run(out, first)
         if not same:
             failures.append(f"{mode}: two card runs differ in rows or "
@@ -1842,6 +1880,30 @@ def phase_slice_merge(data, seg, rag, dev):
             "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
             "launches": paths[f"merge_{mode}"],
             "repeat_runs_identical": same, "profile": prof}
+        if mode == "fused_ms":
+            # the timed calls after the first run the plan's CUDA graph
+            # (the first of them captures it): replays, capture seconds,
+            # pool bytes and launches a replay from the module
+            graphs = [g for g in md.plan_graph_info()
+                      if (g["E"], g["R"], g["sal_L"]) == (E, R, st["sal_L"])]
+            engines[mode]["graph"] = {
+                "plan_graph": [r.get("plan_graph") for r in rep_stats],
+                "capture_call_s": reps[0],
+                "replay_median_s": float(np.median(reps[1:])),
+                "first_call_s": first_s,
+                "first_over_replay": first_s / float(np.median(reps[1:])),
+                "graphs": graphs,
+                "launches_counted_one_replay":
+                    paths["merge_fused_ms_graph"]}
+            if not all(r.get("plan_graph") for r in rep_stats) \
+                    or len(graphs) != 1:
+                failures.append(f"fused_ms: the calls after the first did "
+                                f"not all replay one CUDA graph: "
+                                f"{engines[mode]['graph']}")
+            elif paths["merge_fused_ms_graph"] != \
+                    graphs[0]["launches_per_replay"]:
+                failures.append("fused_ms: a replay's counted launches "
+                                "differ from its graph's tally")
         firsts[mode] = first
     if engines["fused_ms"]["fallback"] is not False:
         failures.append("fused_ms fell back to the single-phase engine")
@@ -2007,6 +2069,10 @@ def phase_slice_merge(data, seg, rag, dev):
         if policy == "mean":
             shapes.append(check_segment_sum("chunked_dedupe", *dedupe))
 
+    # the plan store across processes, on the data section
+    store = plan_store_check(rag, pb1)
+    failures += store.pop("failures")
+
     # dense device metrics of the data section's over-segmentation
     sid1, S1 = mdev.densify_labels(seg)
     tid1, T1 = mdev.densify_labels(data["truth"], exclude=(0,))
@@ -2066,7 +2132,8 @@ def phase_slice_merge(data, seg, rag, dev):
     if not scan["cnt_min_max_equal"] or sums > 1e-12 * scan["sum_largest"]:
         failures.append(f"tree scan differs from the host: {scan}")
     emit({"phase": "slice_merge", "part": "data_section_1024",
-          "serial": serial, "chunked": chunked, "dense_metrics": dense,
+          "serial": serial, "chunked": chunked, "plan_store": store,
+          "dense_metrics": dense,
           "tree_scan": scan, "phase_s": time.perf_counter() - t_phase})
     if failures:
         raise AssertionError(f"slice_merge: {failures}")
@@ -2077,6 +2144,106 @@ def phase_slice_merge(data, seg, rag, dev):
              "fused_median_s": engines["fused"]["median_s"],
              "fused_ms_median_s": engines["fused_ms"]["median_s"]}
     return paths, shapes, bench
+
+
+def plan_store_child(directory):
+    """One process of the plan-store check: the store in ``directory``
+    (utils.enable_persistent_cache), merge_batched_device_exact twice on
+    the edge arrays saved there; then a capture of a program that reads
+    the card from the host, which must raise, and the merge once more.
+    Prints one line: the calls' counters, seconds and the SHA-1 of their
+    rows and saliency bits, the capture's error, the last rows' SHA-1."""
+    import hashlib
+    import os
+
+    import glia_tpu_torch.graph.merge_device as md
+    from glia_tpu_torch.utils import enable_persistent_cache
+
+    enable_persistent_cache(directory)
+    x = np.load(os.path.join(directory, "inputs.npz"))
+    calls = []
+    for _ in range(2):
+        st = {}
+        t = time.perf_counter()
+        order, sal, n = md.merge_batched_device_exact(
+            x["u"], x["v"], x["s"], x["c"], int(x["R"]), stats=st,
+            device="cuda")
+        torch.cuda.synchronize()
+        calls.append({
+            "s": time.perf_counter() - t, "merges": n,
+            "rows_sha1": hashlib.sha1(
+                order[:n].cpu().numpy().tobytes()).hexdigest(),
+            "saliencies_sha1": hashlib.sha1(
+                sal[:n].cpu().numpy().tobytes()).hexdigest(),
+            **{k: st.get(k) for k in ("plan_replayed", "plan_graph",
+                                      "fallback", "n_supersteps")}})
+    # a plan program that reads the card from the host cannot be captured:
+    # the capture raises (no eager run in its place), and the card goes on
+    inputs = (torch.as_tensor(x["u"], device="cuda").long(),
+              torch.as_tensor(x["v"], device="cuda").long(), (), ())
+    try:
+        md._PlanGraph(lambda *xs: xs[0].sum().item(), inputs, {})
+        raised = None
+    except Exception as e:  # reported: the parent fails on None
+        raised = repr(e)[:200]
+    order, _, n = md.merge_batched_device_exact(
+        x["u"], x["v"], x["s"], x["c"], int(x["R"]), device="cuda")
+    emit({"plan_store_child": calls, "capture_with_host_read": raised,
+          "rows_after_it_sha1": hashlib.sha1(
+              order[:n].cpu().numpy().tobytes()).hexdigest()})
+
+
+def plan_store_check(rag, pb):
+    """Two processes, one after the other, with the plan store in one
+    temporary directory: the first discovers and stores the plan and the
+    depth capacity; the second's first call must replay the stored plan
+    (its last phase eagerly, its superstep count not being stored), its
+    second call the plan's CUDA graph, all with the first process's rows
+    and saliency bits; in each, a capture with a host read must raise and
+    the merge after it give the same rows.  Returns what the children
+    printed and the failures."""
+    import os
+    import tempfile
+
+    import glia_tpu_torch.graph.merge_device as md
+
+    u, v, s, c = md.edge_mean_arrays(rag, pb)
+    t = time.perf_counter()
+    children, failures = [], []
+    with tempfile.TemporaryDirectory() as d:
+        np.savez(os.path.join(d, "inputs.npz"), u=u, v=v, s=s, c=c,
+                 R=rag.n_regions)
+        for _ in range(2):
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--plan-store-child", d], capture_output=True, text=True,
+                timeout=300)
+            if out.returncode != 0:
+                raise AssertionError(f"plan-store child: rc "
+                                     f"{out.returncode}: "
+                                     f"{out.stderr[-2000:]}")
+            children.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        with open(os.path.join(d, "glia_plan_memo.json")) as f:
+            stored = json.load(f)
+    (a1, a2), (b1, b2) = (ch["plan_store_child"] for ch in children)
+    digests = {(x["rows_sha1"], x["saliencies_sha1"])
+               for x in (a1, a2, b1, b2)}
+    if a1["plan_replayed"] is not False or b1["plan_replayed"] is not True:
+        failures.append(f"plan store: the second process's first call did "
+                        f"not replay the stored plan: {children}")
+    if not b2["plan_graph"] or any(x["fallback"] for x in (a1, a2, b1, b2)):
+        failures.append(f"plan store: no graph or a fallback: {children}")
+    if len(digests) != 1:
+        failures.append(f"plan store: rows or saliencies differ between "
+                        f"the processes: {children}")
+    for ch in children:
+        if ch["capture_with_host_read"] is None or \
+                ch["rows_after_it_sha1"] != a1["rows_sha1"]:
+            failures.append(f"a capture with a host read did not raise, or "
+                            f"the next merge differed: {ch}")
+    return {"processes": children, "stored_plans": len(stored["plans"]),
+            "stored_sal_L": len(stored["sal_L"]),
+            "seconds": time.perf_counter() - t, "failures": failures}
 
 
 # the sharded path (glia_tpu_torch.parallel): the ranks of its world-4
@@ -2836,12 +3003,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trees", type=int, default=255)
     ap.add_argument("--depth", type=int, default=24)
+    # one process of slice_merge's plan-store check (plan_store_check)
+    ap.add_argument("--plan-store-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
               "only", file=sys.stderr)
         return 1
     import glia_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    if args.plan_store_child:
+        plan_store_child(args.plan_store_child)
+        return 0
 
     dev = torch.device("cuda")
     smi = phase_env()

@@ -34,4 +34,5 @@ Subpackages
 
 __version__ = "0.1.0"
 
+from . import constants  # noqa: F401
 from .device import default_dtype, resolve_device  # noqa: F401

@@ -7,11 +7,20 @@ background/mask conventions) line up exactly with the reference.
 
 import numpy as np
 
+# Label dtype: the reference uses uint32 (glia_base.hxx:43); labels are
+# non-negative int32 here, as in glia_tpu.
+LABEL_DTYPE = np.int32
+REAL_DTYPE = np.float32
+FVAL_DTYPE = np.float64  # feature values are double in the reference
+
 # Background label (glia_image.hxx:27) - excluded from evaluation by default.
 BG_VAL = 0
 # Mask-out value (glia_image.hxx:28): pixels where mask == 0 are ignored.
 MASK_OUT_VAL = 0
+MASK_IN_VAL = 1
 
+# Sentinel/dummy value (glia_base.hxx:56).
+DUMMY = -1.0
 # Float epsilon used for "is zero" tests and safe division (glia_base.hxx:57).
 FEPS = 2.22e-16
 

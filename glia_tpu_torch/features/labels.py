@@ -15,11 +15,13 @@ tree (disjoint unions), so one segment-count pass + one tree scan covers all
 2N-1 regions -- no per-region pixel re-traversals.  Pair counts use exact
 Python integers (reference uses BigInt, code/type/big_num.hxx).
 
-The port's copy of glia_tpu.features.labels, without its per-merge loop
-``bc_labels_loop`` (glia_tpu's own oracle for the vectorised rules).
+The port's copy of glia_tpu.features.labels, with its per-merge loop
+``bc_labels_loop``, the slow oracle of the vectorised ``bc_labels``.
 """
 
 from __future__ import annotations
+
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -68,6 +70,71 @@ def node_truth_counts(labels, truth, order, exclude_truth=(BG_VAL,)):
         sizes[i] += sizes[left[i]] + sizes[right[i]]
         counts[i] += counts[left[i]] + counts[right[i]]
     return tree, sizes, counts, tv
+
+
+def _pair_stats_rows(rows: List[np.ndarray]) -> Tuple[int, int, int, int]:
+    """Exact TP/TN/FP/FN for a region set given truth-count rows
+    (stats.hxx:189-229 semantics; each row is one region)."""
+
+    def c2(x):
+        return x * (x - 1) // 2
+
+    n = 0
+    tp = 0
+    pairs0 = 0
+    col = None
+    for row in rows:
+        row = [int(x) for x in row]
+        s = sum(row)
+        n += s
+        pairs0 += c2(s)
+        tp += sum(c2(x) for x in row)
+        if col is None:
+            col = row
+        else:
+            col = [a + b for a, b in zip(col, row)]
+    pairs1 = sum(c2(x) for x in col) if col else 0
+    npair = c2(n)
+    tn = npair - pairs1 + tp - pairs0
+    fp = pairs0 - tp
+    fn = pairs1 - tp
+    return tp, tn, fp, fn
+
+
+def _prf(tp, tn, fp, fn):
+    prec = tp / (tp + fp) if tp + fp else tp / FEPS if tp else 0.0
+    rec = tp / (tp + fn) if tp + fn else tp / FEPS if tp else 0.0
+    f = 2.0 * prec * rec / (prec + rec) if (prec + rec) else 0.0
+    return f, prec, rec
+
+
+def _ri(tp, tn, fp, fn):
+    den = tp + tn + fp + fn
+    return (tp + tn) / den if den else 0.0
+
+
+def _vi_rows(rows: List[np.ndarray], n_point: int) -> float:
+    """Region-set VI (image_stats.hxx:69-118): normalizer n_point includes
+    excluded pixels."""
+    if n_point == 0:
+        return 0.0
+    col: Dict[int, float] = {}
+    tot = []
+    for row in rows:
+        tot.append(float(np.sum(row)))
+        for t, c in enumerate(row):
+            if c:
+                col[t] = col.get(t, 0.0) + float(c)
+    ret = 0.0
+    for ri_, row in enumerate(rows):
+        if tot[ri_] < FEPS:
+            continue
+        lr = np.log2(tot[ri_])
+        for t, c in enumerate(row):
+            c = float(c)
+            if c >= FEPS and col[t] >= FEPS:
+                ret += c * (np.log2(col[t]) + lr - 2.0 * np.log2(c))
+    return ret / n_point
 
 
 def bc_labels(labels, truth, order, rule="f1", tweak=False,
@@ -172,3 +239,49 @@ def bc_labels(labels, truth, order, rule="f1", tweak=False,
         out = np.where(m_vi < s_vi, BC_LABEL_MERGE, BC_LABEL_SPLIT)
         return out.astype(np.int64), m_vi, s_vi
     raise ValueError(rule)
+
+
+def bc_labels_loop(labels, truth, order, rule="f1", tweak=False,
+                   max_prec_drop=1.0, exclude_truth=(BG_VAL,)):
+    """Reference (slow) per-merge implementation, kept as the oracle for
+    the vectorized ``bc_labels``."""
+    tree, sizes, counts, tv = node_truth_counts(
+        labels, truth, order, exclude_truth)
+    internal = np.nonzero(~tree.is_leaf)[0]
+    n = len(internal)
+    out = np.zeros(n, dtype=np.int64)
+    mscore = np.zeros(n)
+    sscore = np.zeros(n)
+    for mi, ni in enumerate(internal):
+        l, r = int(tree.left[ni]), int(tree.right[ni])
+        split_rows = [counts[l], counts[r]]
+        merge_rows = [counts[ni]]
+        if rule == "vi":
+            m = _vi_rows(merge_rows, int(sizes[ni]))
+            s = _vi_rows(split_rows, int(sizes[l]) + int(sizes[r]))
+            out[mi] = BC_LABEL_MERGE if m < s else BC_LABEL_SPLIT
+        elif rule == "f1":
+            stp = _pair_stats_rows(split_rows)
+            mtp = _pair_stats_rows(merge_rows)
+            s, sprec, srec = _prf(*stp)
+            m, mprec, mrec = _prf(*mtp)
+            if max_prec_drop < 1.0 and sprec - mprec > max_prec_drop:
+                out[mi] = BC_LABEL_SPLIT
+            elif tweak:
+                out[mi] = BC_LABEL_MERGE if (
+                    m > s
+                    or (sprec < FEPS and srec < FEPS
+                        and mprec < FEPS and mrec < FEPS)
+                    or (s == m and sprec > 0.9 and mprec > 0.9)
+                ) else BC_LABEL_SPLIT
+            else:
+                out[mi] = BC_LABEL_MERGE if m > s else BC_LABEL_SPLIT
+        elif rule == "ri":
+            s = _ri(*_pair_stats_rows(split_rows))
+            m = _ri(*_pair_stats_rows(merge_rows))
+            out[mi] = BC_LABEL_MERGE if m > s else BC_LABEL_SPLIT
+        else:
+            raise ValueError(rule)
+        mscore[mi] = m
+        sscore[mi] = s
+    return out, mscore, sscore

@@ -49,7 +49,6 @@ from ..device import (DeviceLike, default_dtype, resolve_device,
 from ..features.config import FeatureConfig
 from ..features.device import (DeviceFeatureSpec, bc_features_dev,
                                counting_hist)
-from ..features.hierarchical import group_stats
 from ..ops.segment_csr import segment_sum_auto
 from .merge_device import order_to_keys
 from .rag import Rag
@@ -145,6 +144,9 @@ def build_state(rag: Rag, cfg: FeatureConfig):
     directed-pair split and the initial table membership follow glia_tpu's
     host engine (graph/merge_bc.DynamicRagState).
     """
+    # imported here, as in glia_tpu: features imports graph
+    from ..features.hierarchical import group_stats
+
     if rag.region_ptr is None:
         raise ValueError("build RAG with contour_only=False")
     ndim = len(rag.shape)

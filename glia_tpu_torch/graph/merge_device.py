@@ -34,17 +34,25 @@ Regions are dense indices [0, R); merged regions get fresh ids R, R+1, ...
 so the emitted order aligns with the reference's key scheme when composed
 with the RAG's key table (``order_to_keys``).
 
-The supersteps run as a Python loop with one host read each (the loop
-condition).  Every segment sum goes through ``segment_sum_auto``: the
-hand-written CUDA kernel on the card, ``index_add_`` on the CPU.  Indices
-are int64 tensors.
+A first run's supersteps are a Python loop with one host read each (the
+loop condition).  Once a multi-phase plan is memoized, a run of it is
+one program of tensors with no host read (``_plan_program``: every phase,
+transition and, for ``merge_batched_device_exact``, the exact saliencies),
+whose scalars the host reads in one copy; on a CUDA device the program is
+captured once per plan and shape into a CUDA graph and replayed
+(``plan_graph_info``).  Plans of the pooled mean persist between
+processes in the store that ``utils.enable_persistent_cache`` names.
+Every segment sum goes through ``segment_sum_auto``: the hand-written CUDA
+kernel on the card, ``index_add_`` on the CPU.  Indices are int64 tensors.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,6 +60,7 @@ import torch
 from ..device import (DeviceLike, default_dtype, resolve_device,
                       synchronize)
 from ..ops.segment_csr import segment_sum_auto
+from ..utils.cache import plan_store_dir
 
 BIG32 = 2 ** 31 - 1
 
@@ -203,6 +212,22 @@ def _as_tensor(a, dev):
     if torch.is_tensor(a):
         return a.to(dev)
     return torch.tensor(np.asarray(a), device=dev)
+
+
+def _dtype_name(dtype) -> str:
+    """numpy's name of a torch dtype ("float32"): the memo keys' and the
+    plan store's spelling."""
+    return str(dtype).replace("torch.", "")
+
+
+def _min(a, b):
+    """min of two ints or 0-d tensors, with no host read."""
+    if not torch.is_tensor(a):
+        a, b = b, a
+    if not torch.is_tensor(a):
+        return min(a, b)
+    return torch.minimum(a, b) if torch.is_tensor(b) else torch.clamp(a,
+                                                                       max=b)
 
 
 def _as_index(a, dev):
@@ -546,16 +571,18 @@ def _contract_chains(parent, has, vbits, dmax: int, pack_hr: bool,
     return vs, rt_s, grank, first_in_run, ok, lut
 
 
-def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
-                    alive, order, sal, n_m_base: int = 0, g_of=None):
+def fused_superstep(st: _FusedStatic, n_loc, u, v, payload, vstate,
+                    alive, order, sal, n_m_base=0, g_of=None):
     """One superstep of the fused engine, a plain function on tensors.
 
     ``n_loc`` merges are recorded so far in this phase, ``n_m_base``
-    before it; ``order`` [max_m_glob + 1, 3] and ``sal`` [max_m_glob + 1]
-    are updated in place (their last row is the dump slot of rows not
-    recorded).  ``g_of`` [R]: the global id of each local region (None
-    for the identity).  Returns (u, v, payload, vstate, alive, n_new) with
-    ``n_new`` the number of merges recorded, as a tensor."""
+    before it: each a Python int or a 0-d int64 tensor on the device (the
+    superstep then reads nothing back to the host).  ``order``
+    [max_m_glob + 1, 3] and ``sal`` [max_m_glob + 1] are updated in place
+    (their last row is the dump slot of rows not recorded).  ``g_of`` [R]:
+    the global id of each local region (None for the identity).  Returns
+    (u, v, payload, vstate, alive, n_new) with ``n_new`` the number of
+    merges recorded, as a tensor."""
     E, R, dmax, max_m, n_ids = st.E, st.R, st.dmax, st.max_m, st.n_ids
     max_m_glob = st.max_m_glob
     # the global id of this phase's first fresh local id, at its start
@@ -595,7 +622,7 @@ def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
 
     mbits = torch.cat([bits, bits.new_full((1,), BIG32)])[m]
     # two bounds: the phase's local id space and the global order buffer
-    cap = min(max_m - n_loc, max_m_glob - n_m_base - n_loc)
+    cap = _min(max_m - n_loc, max_m_glob - n_m_base - n_loc)
     vs, rt_s, grank, first_in_run, ok, lut = _contract_chains(
         parent, m < E, mbits, dmax, st.pack_hr, cap, R + n_loc)
     r2 = Rb + n_loc + grank                              # global ids
@@ -628,13 +655,14 @@ def fused_superstep(st: _FusedStatic, n_loc: int, u, v, payload, vstate,
 
 
 def _run_phase(st, u, v, payload, vstate, alive, any_alive, order, sal,
-               max_steps, n_m_base=0, g_of=None):
+               max_steps, n_m_base=0, g_of=None, n_loc=0):
     """Supersteps of one phase until ``max_steps``, no live edge, or no
-    merge left in the local or the global id space.  ``any_alive``: the
-    host's knowledge that ``alive`` has a live edge.  The one host read of
-    a superstep is the loop condition.  Returns (u, v, payload, vstate,
-    alive, any_alive, merges recorded, supersteps)."""
-    n_loc, steps = 0, 0
+    merge left in the local or the global id space, from ``n_loc`` merges
+    recorded in the phase.  ``any_alive``: the host's knowledge that
+    ``alive`` has a live edge.  The one host read of a superstep is the
+    loop condition.  Returns (u, v, payload, vstate, alive, any_alive,
+    merges recorded in the phase, supersteps)."""
+    steps = 0
     while (steps < max_steps and any_alive and n_loc < st.max_m
            and n_m_base + n_loc < st.max_m_glob):
         u, v, payload, vstate, alive, n_new = fused_superstep(
@@ -645,6 +673,33 @@ def _run_phase(st, u, v, payload, vstate, alive, any_alive, order, sal,
             [n_new, alive.any().long()]).tolist()
         n_loc += n_new_h
     return u, v, payload, vstate, alive, bool(any_alive), n_loc, steps
+
+
+def _run_phase_fixed(st, u, v, payload, vstate, alive, order, sal,
+                     n_steps, n_m_base, g_of=None):
+    """``n_steps`` supersteps of one phase with no host read: the loop of
+    ``_run_phase`` unrolled, each superstep guarded by its condition on the
+    device.  A superstep whose condition is false records nothing (no
+    live edge attaches, or the merge bound leaves no room) and keeps the
+    state as it was, so the result is the loop's; the superstep count
+    advances only while the condition holds.  ``n_m_base``: a 0-d tensor.
+    Returns (u, v, payload, vstate, alive, merges recorded, supersteps),
+    the counts as 0-d tensors."""
+    n_loc = torch.zeros((), dtype=torch.int64, device=u.device)
+    done = torch.zeros_like(n_loc)
+    for _ in range(n_steps):
+        go = (alive.any() & (n_loc < st.max_m)
+              & (n_m_base + n_loc < st.max_m_glob))
+        u2, v2, p2, vs2, a2, n_new = fused_superstep(
+            st, n_loc, u, v, payload, vstate, alive, order, sal,
+            n_m_base=n_m_base, g_of=g_of)
+        u, v, alive = (torch.where(go, x2, x)
+                       for x2, x in ((u2, u), (v2, v), (a2, alive)))
+        payload = tuple(torch.where(go, x2, x) for x2, x in zip(p2, payload))
+        vstate = tuple(torch.where(go, x2, x) for x2, x in zip(vs2, vstate))
+        n_loc = n_loc + torch.where(go, n_new, 0)
+        done = done + go.long()
+    return u, v, payload, vstate, alive, n_loc, done
 
 
 def _initial_state(u, v, payload, vsizes, R, dtype, device):
@@ -708,8 +763,8 @@ def _phase_transition(u, v, payload, vstate, alive, g_of_prev,
                      Rb + (lid - R_loc_prev))
     # present: an endpoint of a live edge (slot n_vert_prev is a dump)
     pres = torch.zeros(n_vert_prev + 1, dtype=torch.bool, device=dev)
-    pres[torch.where(alive, u, n_vert_prev)] = True
-    pres[torch.where(alive, v, n_vert_prev)] = True
+    pres.index_fill_(0, torch.where(alive, u, n_vert_prev), True)
+    pres.index_fill_(0, torch.where(alive, v, n_vert_prev), True)
     pres = pres[:n_vert_prev]
     new_id = torch.cumsum(pres.long(), 0) - 1
     ovf_v = pres.sum() > R2_cap
@@ -759,54 +814,308 @@ def _cap_quantize(x, lo=256, tile=256):
 
 
 # realized multi-phase plans [(steps | None, E_cap, R_cap)] by (E, R,
-# statistic, payload layout, dmax, dtype, vertex payload), for the life of
-# the process; a memoized plan replays without reading alive counts
+# statistic, payload layout, dmax, dtype name, vertex payload), for the life
+# of the process; a memoized plan replays without reading alive counts
 _PLAN_MEMO = {}
+# the supersteps of a memoized plan's last phase in the run that measured
+# it, by the same key: the count a captured program runs that phase for
+_PLAN_LAST_STEPS = {}
 
 
-def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
-                           max_supersteps, dtype, device, dmax=4, plan=None,
-                           stats=None, vsizes=None):
-    """Multi-phase fused merge: full-capacity supersteps first, then
-    transitions into smaller edge and vertex capacities for the tail
-    (alive counts roughly halve per superstep).  Same selection rule and
-    chain emission as the single-phase engine, each phase in its own
-    compact id space.
+# ---------------------------------------------------------------------------
+# the plan store: memoized plans between processes
+# ---------------------------------------------------------------------------
 
-    plan=None is adaptive: the first call on an (E, R, policy) shape runs
-    1-step phases while the phase index is below 2, then 2-step phases, a
-    phase being the last one once its edge capacity is at most 4096 or it
-    is the seventh; after each non-last phase it reads the alive count,
-    and the next phase's edge capacity is the quantized count, its vertex
-    capacity the quantized min(2 * alive, current).  A frontier that does
-    not shrink makes the next phase the last.  The realized plan is
-    memoized per shape, and later calls replay it
-    (``stats["plan_replayed"]``): another graph of the same shape may
-    replay it too, at the cost of at most one fallback.  An explicit plan
-    is a list of (steps, edge_cap, vert_cap), caps as fractions of E / R
-    (<= 1.0) or absolute rows; its last entry runs to completion.  A
-    capacity overflow or an unfinished frontier falls back to the
-    single-phase engine and drops the memo entry (``stats["fallback"]``).
-    """
-    E = len(u)
-    R = int(n_regions)
+_PLAN_STORE_FILE = "glia_plan_memo.json"
+# the store file read last, so that each is read once a process
+_PLAN_STORE_LOADED: list = [None]
+
+
+def _plan_store_path() -> Optional[str]:
+    d = plan_store_dir()
+    return os.path.join(d, _PLAN_STORE_FILE) if d else None
+
+
+def _plan_store_load():
+    """Read the plan store once: the plans of the pooled-mean statistic
+    (the histogram policies' statistics are closures, which rediscover in
+    each process) and the exact saliencies' depth capacities, glia_tpu's
+    layout ``{"plans": {key: plan}, "sal_L": {key: L}}``.  An entry the
+    process already has wins.  A missing, stale or corrupt store means
+    "rediscover": nothing is read from a file that does not parse whole."""
+    path = _plan_store_path()
+    if path is None or _PLAN_STORE_LOADED[0] == path:
+        return
+    _PLAN_STORE_LOADED[0] = path
+    try:
+        with open(path) as f:
+            d = json.load(f)
+        plans = {}
+        for k, plan in d.get("plans", {}).items():
+            E, R, dmax, dt, dt_struct, with_vsz = json.loads(k)
+            key = (int(E), int(R), _mean_stat_packed, ((2, str(dt_struct)),),
+                   int(dmax), str(dt), bool(with_vsz))
+            plans[key] = [(None if n is None else int(n), int(e), int(r))
+                          for n, e, r in plan]
+        sal_L = {(int(E), int(M), int(R), str(dt)): int(L)
+                 for (E, M, R, dt), L in (
+                     (json.loads(k), L) for k, L in d.get("sal_L",
+                                                          {}).items())}
+    except (OSError, ValueError, TypeError, AttributeError):
+        return
+    for key, plan in plans.items():
+        _PLAN_MEMO.setdefault(key, plan)
+    for key, L in sal_L.items():
+        _EXACT_SAL_L.setdefault(key, L)
+
+
+def _plan_store_save():
+    """Write the process's pooled-mean plans and depth capacities to the
+    store (a temporary file renamed into place); nothing without a store,
+    and a store that cannot be written is left as it was."""
+    path = _plan_store_path()
+    if path is None:
+        return
+    plans = {}
+    for (E, R, stat_fn, struct, dmax, dt, with_vsz), plan in \
+            _PLAN_MEMO.items():
+        if stat_fn is not _mean_stat_packed or len(struct) != 1 \
+                or struct[0][0] != 2:
+            continue
+        plans[json.dumps([E, R, dmax, dt, struct[0][1], with_vsz])] = [
+            list(e) for e in plan]
+    sal_L = {json.dumps(list(k)): L for k, L in _EXACT_SAL_L.items()}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump({"plans": plans, "sal_L": sal_L}, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+# ---------------------------------------------------------------------------
+# the plan program: a memoized plan as one function of tensors
+# ---------------------------------------------------------------------------
+
+class _ProgramOut(NamedTuple):
+    """What ``_plan_program`` returns, every field a tensor (or None).
+    ``scalars``: [n_m, supersteps, overflow, a live edge left, merges of
+    the last phase, its supersteps, converged], read by the host in one
+    copy; ``state``: the last phase's (u, v, payload, vstate, alive) and
+    ``g_of`` its id table, from which an unfinished last phase goes on."""
+    order: torch.Tensor
+    sal: torch.Tensor
+    sal_exact: Optional[torch.Tensor]
+    scalars: torch.Tensor
+    state: tuple
+    g_of: Optional[torch.Tensor]
+
+
+def _plan_program(entries, stat_fn, R, dmax, max_supersteps, dtype,
+                  with_vsz, last_steps, u0, v0, payload0, vstate0,
+                  sal_L=None) -> _ProgramOut:
+    """Every phase and transition of a memoized plan in one function of
+    tensors with no host read (glia_tpu's one-program plan pipeline): each
+    non-last phase runs its planned supersteps and the last one
+    ``last_steps`` (the loop condition guarded on the device,
+    ``_run_phase_fixed``).  With ``sal_L``, the exact merge-time pooled
+    means of the order follow from the pooled-mean payload (payload0[0]
+    as (sum, count) columns) by the LCA pass at depth capacity ``sal_L``.
+    On a CUDA device this is what a plan graph captures; on the CPU it
+    runs as it is."""
+    dev = u0.device
     max_m = max(R - 1, 1)
-    with_vsz = vsizes is not None
-    u_d, v_d, payload_d, vstate = _initial_state(u, v, payload, vsizes, R,
-                                                 dtype, device)
-    struct = tuple((p.ndim, str(p.dtype)) for p in payload_d)
-    memo_key = (E, R, stat_fn, struct, dmax, str(dtype), with_vsz)
-    if plan is not None:
-        entries = []
-        for i, (steps, ef, vf) in enumerate(plan):
-            Ei = E if i == 0 else _tile_ceil(E * ef if ef <= 1.0 else ef)
-            Ri = R if i == 0 else _tile_ceil(R * vf if vf <= 1.0 else vf,
-                                             lo=128, tile=128)
-            entries.append((steps, Ei, Ri))
-    else:
-        entries = _PLAN_MEMO.get(memo_key)
-    adaptive = entries is None
+    order, sal = _order_buffers(max_m, dtype, dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    alive = torch.ones(entries[0][1], dtype=torch.bool, device=dev)
+    g_of = torch.arange(R, device=dev)
+    u, v, payload, vstate = u0, v0, payload0, vstate0
+    n_base, total = zero, zero
+    for pi, (steps, E_cap, R_cap) in enumerate(entries):
+        last = pi == len(entries) - 1
+        if last:
+            steps = last_steps
+        elif steps is None:
+            steps = max_supersteps
+        st = _phase_static(stat_fn, E_cap, R_cap, R, dmax, with_vsz)
+        # the first phase maps by the identity, as glia_tpu's pipeline
+        g_phase = None if pi == 0 else g_of
+        base = n_base
+        u, v, payload, vstate, alive, n_loc, done = _run_phase_fixed(
+            st, u, v, payload, vstate, alive, order, sal, steps, base,
+            g_phase)
+        total = total + done
+        n_base = base + n_loc
+        if not last:
+            u, v, payload, vstate, alive, g_of, o = _phase_transition(
+                u, v, payload, vstate, alive, g_of, base, R_cap, R,
+                *entries[pi + 1][1:])
+            ovf = ovf | o
+    sal_exact, conv = None, torch.ones((), dtype=torch.bool, device=dev)
+    if sal_L is not None:
+        (sc,) = payload0
+        ex, conv = _exact_saliency_pass(u0, v0, sc[:, 0], sc[:, 1],
+                                        order[:max_m], R, sal_L)
+        sal_exact = torch.where(torch.isnan(ex), sal[:max_m], -ex)
+    scalars = torch.stack([n_base, total, ovf.long(), alive.any().long(),
+                           n_loc, done, conv.long()])
+    return _ProgramOut(order, sal, sal_exact, scalars,
+                       (u, v, payload, vstate, alive), g_phase)
 
+
+def _flat(inputs):
+    u, v, payload, vstate = inputs
+    return (u, v, *payload, *vstate)
+
+
+class _PlanGraph:
+    """A plan program captured into a CUDA graph, with the static tensors
+    it reads (a copy of each input) and writes (its outputs, overwritten
+    by every replay).  Capturing raises on anything that would read the
+    device from the host; no call falls back to running eagerly."""
+
+    def __init__(self, program, inputs, info):
+        from ..ops import cuda as kcuda
+
+        self.info = info
+        dev = inputs[0].device
+        self.inputs = (inputs[0].clone(), inputs[1].clone(),
+                       tuple(p.clone() for p in inputs[2]),
+                       tuple(z.clone() for z in inputs[3]))
+        t = time.perf_counter()
+        # one run on a side stream first, as torch.cuda.graphs asks of a
+        # capture (lazy initialization stays out of the graph)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            program(*self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with kcuda.graph_launch_tally() as tally:
+            with torch.cuda.graph(self.graph):
+                reserved = torch.cuda.memory_reserved(dev)
+                self.outputs = program(*self.inputs)
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t
+        self.launches = tally
+        self.replays = 0
+
+    def replay(self, inputs) -> _ProgramOut:
+        from ..ops import cuda as kcuda
+
+        for dst, src in zip(_flat(self.inputs), _flat(inputs)):
+            dst.copy_(src)
+        self.graph.replay()
+        kcuda.count_graph_replay(self.launches)
+        self.replays += 1
+        return self.outputs
+
+
+# captured plan programs by plan, statistic, sizes, options and device, for
+# the life of the process (unbounded, as glia_tpu's compiled programs);
+# each holds a private memory pool
+_PLAN_GRAPHS = {}
+
+
+def plan_graph_info():
+    """One dict per captured plan program: edges, regions, phases, the
+    last phase's supersteps, the saliency depth capacity (None for a
+    merge alone), capture seconds (with its warm-up run), the bytes of its
+    memory pool, replays so far and each kernel's launches per replay."""
+    return [dict(g.info, capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                 replays=g.replays, launches_per_replay=dict(g.launches))
+            for g in _PLAN_GRAPHS.values()]
+
+
+class _PlanRun(NamedTuple):
+    order: torch.Tensor        # [max_m + 1, 3]
+    sal: torch.Tensor          # [max_m + 1]
+    sal_exact: Optional[torch.Tensor]
+    n_m: int
+    steps: int
+    bad: bool                  # overflow, or a live edge left
+    conv: bool
+    last_steps: int            # supersteps of the last phase
+    graph: bool                # replayed from a CUDA graph
+
+
+def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
+              inputs, last_steps=None, sal_L=None):
+    """Run a plan: the plan program, then one batched read of its
+    scalars.  On a CUDA device, with the last phase's superstep count
+    known (a memoized plan's), the program is a captured CUDA graph
+    (captured at the first such call); otherwise it runs eagerly, its
+    last phase for ``last_steps`` (0 when unknown).  A last phase with a
+    live edge after those supersteps goes on eagerly from the program's
+    state, up to ``max_supersteps`` (the same supersteps, so the same
+    rows); the exact saliencies are then taken again on the finished
+    order."""
+    u0, v0, payload0, vstate0 = inputs
+    dev = u0.device
+    max_m = max(R - 1, 1)
+    use_graph = dev.type == "cuda" and last_steps is not None
+    K = last_steps or 0
+    args = (tuple(entries), stat_fn, R, dmax, max_supersteps, dtype,
+            with_vsz, K)
+    if use_graph:
+        key = (args[0], stat_fn, R, dmax, max_supersteps,
+               _dtype_name(dtype), with_vsz,
+               tuple(tuple(t.shape) for t in _flat(inputs)), sal_L, K,
+               str(dev))
+        g = _PLAN_GRAPHS.get(key)
+        if g is None:
+            info = {"E": entries[0][1], "R": R, "phases": len(entries),
+                    "last_steps": K, "sal_L": sal_L,
+                    "dtype": _dtype_name(dtype)}
+            g = _PLAN_GRAPHS[key] = _PlanGraph(
+                lambda *xs: _plan_program(*args, *xs, sal_L=sal_L), inputs,
+                info)
+        out = g.replay(inputs)
+    else:
+        out = _plan_program(*args, u0, v0, payload0, vstate0, sal_L=sal_L)
+    n_m, steps, ovf, any_alive, n_loc, done, conv = out.scalars.tolist()
+    order, sal, sal_exact = out.order, out.sal, out.sal_exact
+    if use_graph:
+        # the graph's outputs belong to its next replay
+        order, sal = order.clone(), sal.clone()
+        sal_exact = None if sal_exact is None else sal_exact.clone()
+    if any_alive and done < max_supersteps:
+        st = _phase_static(stat_fn, entries[-1][1], entries[-1][2], R, dmax,
+                           with_vsz)
+        base = n_m - n_loc
+        u, v, payload, vstate, alive = out.state
+        *_, any_alive, n_loc, more = _run_phase(
+            st, u, v, payload, vstate, alive, True, order, sal,
+            max_supersteps - done, n_m_base=base, g_of=out.g_of, n_loc=n_loc)
+        n_m, steps, done = base + n_loc, steps + more, done + more
+        if sal_L is not None:
+            (sc,) = payload0
+            ex, conv_t = _exact_saliency_pass(u0, v0, sc[:, 0], sc[:, 1],
+                                              order[:max_m], R, sal_L)
+            sal_exact = torch.where(torch.isnan(ex), sal[:max_m], -ex)
+            conv = bool(conv_t)
+    return _PlanRun(order, sal, sal_exact, n_m, steps,
+                    bool(ovf or any_alive), bool(conv), done, use_graph)
+
+
+def _discover_plan(stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
+                   inputs):
+    """The adaptive first run on a shape: 1-step phases while the phase
+    index is below 2, then 2-step phases, a phase being the last one once
+    its edge capacity is at most 4096 or it is the seventh; after each
+    non-last phase the alive count is read, and the next phase's edge
+    capacity is the quantized count, its vertex capacity the quantized
+    min(2 * alive, current).  A frontier that does not shrink makes the
+    next phase the last, at the same capacities and without a transition.
+    Returns a _PlanRun whose ``last_steps`` is the last phase's supersteps
+    and the realized plan."""
+    u_d, v_d, payload_d, vstate = inputs
+    E = u_d.shape[0]
+    device = u_d.device
+    max_m = max(R - 1, 1)
     alive = torch.ones(E, dtype=torch.bool, device=device)
     any_alive = E > 0
     order, sal = _order_buffers(max_m, dtype, device)
@@ -818,13 +1127,8 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     force_final = False
     pi = 0
     while True:
-        if not adaptive:
-            steps = entries[pi][0]
-            last = pi == len(entries) - 1
-        else:
-            last = force_final or E_cur <= 4096 or pi >= 6
-            steps = None if last else (1 if pi < 2 else 2)
-        steps_k = max_supersteps if steps is None or last else steps
+        last = force_final or E_cur <= 4096 or pi >= 6
+        steps = None if last else (1 if pi < 2 else 2)
         st = _phase_static(stat_fn, E_cur, R_cur, R, dmax, with_vsz)
         # fresh locals of this phase map with the base at its start; the
         # following transition composes the id table with the same value.
@@ -833,53 +1137,107 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
         base_start = n_base
         u_d, v_d, payload_d, vstate, alive, any_alive, n_loc, done = \
             _run_phase(st, u_d, v_d, payload_d, vstate, alive, any_alive,
-                       order, sal, steps_k, n_m_base=base_start,
-                       g_of=None if pi == 0 else g_of)
+                       order, sal,
+                       max_supersteps if steps is None else steps,
+                       n_m_base=base_start, g_of=None if pi == 0 else g_of)
         n_base = base_start + n_loc
         total_steps += done
-        realized.append((None if last else steps, E_cur, R_cur))
+        realized.append((steps, E_cur, R_cur))
         if last:
             break
-        if not adaptive:
-            E2, R2_cap = entries[pi + 1][1], entries[pi + 1][2]
-        else:
-            n_alive = int(alive.sum())
-            if n_alive == 0:
-                realized[-1] = (None, E_cur, R_cur)
-                break
-            E2 = _cap_quantize(n_alive)
-            R2_cap = _cap_quantize(min(2 * n_alive, R_cur), lo=128,
-                                   tile=128)
-            if E2 >= E_cur:
-                # frontier not shrinking: finish at the current capacity
-                force_final = True
-                pi += 1
-                continue
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            realized[-1] = (None, E_cur, R_cur)
+            break
+        E2 = _cap_quantize(n_alive)
+        R2_cap = _cap_quantize(min(2 * n_alive, R_cur), lo=128, tile=128)
+        if E2 >= E_cur:
+            # frontier not shrinking: finish at the current capacity
+            force_final = True
+            pi += 1
+            continue
         u_d, v_d, payload_d, vstate, alive, g_of, ovf = _phase_transition(
             u_d, v_d, payload_d, vstate, alive, g_of, base_start, R_cur, R,
             E2, R2_cap)
         ovf_any = ovf_any | ovf
         E_cur, R_cur = E2, R2_cap
         pi += 1
+    bad = bool(ovf_any | alive.any())
+    return _PlanRun(order, sal, None, n_base, total_steps, bad, True, done,
+                    False), realized
 
-    if bool(ovf_any | alive.any()):
+
+def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
+                           max_supersteps, dtype, device, dmax=4, plan=None,
+                           stats=None, vsizes=None):
+    """Multi-phase fused merge: full-capacity supersteps first, then
+    transitions into smaller edge and vertex capacities for the tail
+    (alive counts roughly halve per superstep).  Same selection rule and
+    chain emission as the single-phase engine, each phase in its own
+    compact id space.
+
+    plan=None is adaptive: the first call on an (E, R, policy) shape
+    measures its plan (``_discover_plan``), reading the alive count after
+    every phase but the last, and memoizes it per shape (with the pooled
+    mean's plans, in the plan store when there is one).  Later calls run
+    the memoized plan as one program (``_run_plan``; on a CUDA device a
+    captured CUDA graph): ``stats["plan_replayed"]``, and
+    ``stats["plan_graph"]`` when it came from a graph.  Another graph of
+    the same shape may replay the plan too, at the cost of at most one
+    fallback.  An explicit plan is a list
+    of (steps, edge_cap, vert_cap), caps as fractions of E / R (<= 1.0)
+    or absolute rows, run eagerly; its last entry runs to completion.  A
+    capacity overflow or an unfinished frontier falls back to the
+    single-phase engine and drops the memo entry (``stats["fallback"]``).
+    """
+    E = len(u)
+    R = int(n_regions)
+    max_m = max(R - 1, 1)
+    with_vsz = vsizes is not None
+    inputs = _initial_state(u, v, payload, vsizes, R, dtype, device)
+    struct = tuple((p.ndim, _dtype_name(p.dtype)) for p in inputs[2])
+    memo_key = (E, R, stat_fn, struct, dmax, _dtype_name(dtype), with_vsz)
+    st = stats if stats is not None else {}
+    discovered = False
+    if plan is not None:
+        entries = []
+        for i, (steps, ef, vf) in enumerate(plan):
+            Ei = E if i == 0 else _tile_ceil(E * ef if ef <= 1.0 else ef)
+            Ri = R if i == 0 else _tile_ceil(R * vf if vf <= 1.0 else vf,
+                                             lo=128, tile=128)
+            entries.append((steps, Ei, Ri))
+        run = _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype,
+                        with_vsz, inputs)
+    else:
+        _plan_store_load()
+        entries = _PLAN_MEMO.get(memo_key)
+        discovered = entries is None
+        if discovered:
+            run, entries = _discover_plan(stat_fn, R, dmax, max_supersteps,
+                                          dtype, with_vsz, inputs)
+        else:
+            run = _run_plan(entries, stat_fn, R, dmax, max_supersteps,
+                            dtype, with_vsz, inputs,
+                            last_steps=_PLAN_LAST_STEPS.get(memo_key))
+    if run.bad:
         # capacity plan too tight for this RAG: the single-phase engine
         # (slower, never wrong); drop a stale memo so the next call
         # measures again
         _PLAN_MEMO.pop(memo_key, None)
-        if stats is not None:
-            stats["fallback"] = True
+        _PLAN_LAST_STEPS.pop(memo_key, None)
+        st["fallback"] = True
         return _fused_merge_core(u, v, payload, stat_fn, n_regions,
                                  max_supersteps, dtype, device, dmax=dmax,
-                                 stats=stats, vsizes=vsizes)
-    if adaptive:
-        _PLAN_MEMO[memo_key] = realized
-    if stats is not None:
-        stats["n_supersteps"] = total_steps
-        stats["buckets"] = [e for _, e, _ in realized]
-        stats["fallback"] = False
-        stats["plan_replayed"] = plan is None and not adaptive
-    return order[:max_m], sal[:max_m], n_base
+                                 stats=st, vsizes=vsizes)
+    if discovered:
+        _PLAN_MEMO[memo_key] = entries
+        _plan_store_save()
+    if plan is None:
+        _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
+    st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in entries],
+              fallback=False, plan_replayed=plan is None and not discovered,
+              plan_graph=run.graph)
+    return run.order[:max_m], run.sal[:max_m], run.n_m
 
 
 MODES = ("fused", "fused_ms", "chunked")
@@ -1087,7 +1445,8 @@ def exact_saliency_device(u, v, s, c, order, n_regions,
         return torch.zeros(0, dtype=dt, device=dev)
     n_ids = R + M
     L_full = max(1, int(np.ceil(np.log2(max(n_ids, 2)))))
-    shape_key = (len(u), M, R, str(dt))
+    shape_key = (len(u), M, R, _dtype_name(dt))
+    _plan_store_load()
     L = _EXACT_SAL_L.get(shape_key, min(8, L_full))
     u_d = _as_index(u, dev)
     v_d = _as_index(v, dev)
@@ -1099,7 +1458,9 @@ def exact_saliency_device(u, v, s, c, order, n_regions,
         if bool(converged) or L >= L_full:
             break
         L = min(2 * L, L_full)
-    _EXACT_SAL_L[shape_key] = L
+    if _EXACT_SAL_L.get(shape_key) != L:
+        _EXACT_SAL_L[shape_key] = L
+        _plan_store_save()
     if stats is not None:
         stats["sal_L"] = L
     return stat
@@ -1108,8 +1469,9 @@ def exact_saliency_device(u, v, s, c, order, n_regions,
 def _merge_exact(u, v, s, c, n_regions, mode, dmax, max_supersteps, dt,
                  st, dev):
     """Pooled-mean merge in ``mode`` and the exact merge-time saliencies
-    over its order buffer, both on ``dev``; ``st`` receives the engine's
-    counters and the wall seconds of the two stages."""
+    over its order buffer, both on ``dev``, one after the other; ``st``
+    receives the engine's counters and the wall seconds of the two stages
+    (t_merge_loop, t_exact_saliency)."""
     u_d = _as_index(u, dev)
     v_d = _as_index(v, dev)
     s_d = _as_float(s, dev, dt)
@@ -1136,19 +1498,60 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
                                stats=None, device: DeviceLike = None):
     """Pooled-mean multi-phase merge (mode="fused_ms") and the exact
     merge-time saliencies, both on the device with the order never leaving
-    it: the merge, then the LCA-keyed segment sums over its order buffer,
-    then the exact value wherever it is defined.
+    it.
+
+    The first call on a shape discovers: the merge (measuring its plan),
+    then the LCA-keyed segment sums over its order buffer (measuring their
+    depth capacity), then the exact value wherever it is defined.  Once
+    the plan and the depth capacity are both known (in this process, or
+    from the plan store), a call runs merge and saliencies as one program
+    (``_plan_program``; on a CUDA device a captured CUDA graph) with one
+    read of its scalars.  If that run overflows its plan or its depth
+    capacity does not converge, both memos are dropped and the call
+    discovers again.
 
     Returns (order [max_m, 3] dense triples, saliencies with exact
     merge-time pooled means where defined, n_merges).  ``stats``, when
     passed, receives the engine's counters (n_supersteps, buckets,
-    fallback, sal_L) and the wall seconds of the two stages
-    (t_merge_loop, t_exact_saliency)."""
+    fallback, plan_replayed, plan_graph, sal_L) and wall seconds: on the
+    discovery path those of the two stages (t_merge_loop,
+    t_exact_saliency), on the one-program path the program's
+    (t_plan_program), where the two stages are not apart."""
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
     st = stats if stats is not None else {}
-    return _merge_exact(u, v, s, c, n_regions, "fused_ms", dmax,
-                        max_supersteps, dt, st, dev)
+    E = len(u)
+    R = int(n_regions)
+    max_m = max(R - 1, 1)
+    name = _dtype_name(dt)
+    memo_key = (E, R, _mean_stat_packed, ((2, name),), dmax, name, False)
+    sal_key = (E, max_m, R, name)
+    _plan_store_load()
+    plan = _PLAN_MEMO.get(memo_key)
+    L = _EXACT_SAL_L.get(sal_key)
+    if plan is None or L is None:
+        return _merge_exact(u, v, s, c, R, "fused_ms", dmax, max_supersteps,
+                            dt, st, dev)
+    t = time.perf_counter()
+    sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)], dim=1)
+    run = _run_plan(plan, _mean_stat_packed, R, dmax, max_supersteps, dt,
+                    False, (_as_index(u, dev), _as_index(v, dev), (sc,), ()),
+                    last_steps=_PLAN_LAST_STEPS.get(memo_key), sal_L=L)
+    if run.bad or not run.conv:
+        # the plan overflowed or the depth capacity is too small for this
+        # data: drop both memos and discover
+        _PLAN_MEMO.pop(memo_key, None)
+        _PLAN_LAST_STEPS.pop(memo_key, None)
+        _EXACT_SAL_L.pop(sal_key, None)
+        st["fallback"] = True
+        return merge_batched_device_exact(
+            u, v, s, c, n_regions, dmax=dmax, max_supersteps=max_supersteps,
+            dtype=dt, stats=st, device=dev)
+    _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
+    st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in plan],
+              fallback=False, plan_replayed=True, plan_graph=run.graph,
+              sal_L=L, t_plan_program=time.perf_counter() - t)
+    return run.order[:max_m], run.sal_exact, run.n_m
 
 
 # ---------------------------------------------------------------------------
@@ -1381,8 +1784,11 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
 
     ``device`` defaults to the CUDA card and raises without one.  A
     ``stats`` dict receives the engine's counters (n_supersteps, buckets;
-    fallback for "fused_ms") and the wall seconds of the stages
-    (t_merge_loop, t_exact_saliency).
+    fallback, plan_replayed and plan_graph for "fused_ms") and the wall
+    seconds of the stages (t_merge_loop, t_exact_saliency), but for the
+    mean with device saliencies in "fused_ms" once its plan is known:
+    merge and saliencies are then one program (merge_batched_device_exact),
+    timed as t_plan_program.
     Returns (order [n, 3] int64 label keys, saliencies [n] float64)."""
     _check_mode(mode)
     dev = resolve_device(device)
@@ -1407,8 +1813,13 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
     if policy == "mean":
         u, v, s, c = edge_mean_arrays(rag, pb_image)
         if exact_saliency and saliency_engine == "device":
-            order, sal, n_m = _merge_exact(u, v, s, c, rag.n_regions, mode,
-                                           dmax, 256, dt, st, dev)
+            if mode == "fused_ms":
+                order, sal, n_m = merge_batched_device_exact(
+                    u, v, s, c, rag.n_regions, dmax=dmax, dtype=dt,
+                    stats=st, device=dev)
+            else:
+                order, sal, n_m = _merge_exact(u, v, s, c, rag.n_regions,
+                                               mode, dmax, 256, dt, st, dev)
             sal = sal[:n_m].double().cpu().numpy()
             return order_to_keys(order, n_m, rag), sal
         order, sal, n_m = timed_merge(merge_batched_device, u, v, s, c)

@@ -293,3 +293,71 @@ def dfs_intervals(tree: MergeTree):
                 stack.append((int(tree.right[node]), False))
                 stack.append((int(tree.left[node]), False))
     return leaf_pos, lo, hi, np.asarray(leaf_order, dtype=np.int64)
+
+
+def gen_order(tree: MergeTree) -> np.ndarray:
+    """Inverse of build_tree (genOrder, tree_build.hxx:67-78): internal
+    nodes in creation order -> (left_key, right_key, key) triples."""
+    rows = []
+    for i in range(tree.n_nodes):
+        if tree.left[i] >= 0:
+            rows.append((int(tree.keys[tree.left[i]]),
+                         int(tree.keys[tree.right[i]]),
+                         int(tree.keys[i])))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+
+
+def gen_node_paths(tree: MergeTree) -> List[List[int]]:
+    """Per-leaf root path of node indices (genNodePaths,
+    tree_build.hxx:184-196)."""
+    out = []
+    for i in range(tree.n_nodes):
+        if tree.left[i] < 0:
+            out.append([i] + tree.ancestors(i))
+    return out
+
+
+def encode_tree(tree: MergeTree) -> tuple:
+    """Canonical structural encoding for tree comparison (alg/tree.hxx:39-89
+    intent): recursively sorted (leaf-key | (child, child)) tuples, so two
+    trees encode equal iff they merge the same leaf sets in the same
+    topology regardless of creation order or key naming of internals."""
+
+    def enc(i):
+        if tree.left[i] < 0:
+            return (int(tree.keys[i]),)
+        a = enc(int(tree.left[i]))
+        b = enc(int(tree.right[i]))
+        return (min(a, b), max(a, b))
+
+    roots = sorted(enc(i) for i in range(tree.n_nodes)
+                   if tree.parent[i] < 0)
+    return tuple(roots)
+
+
+def get_base_keys(order) -> set:
+    """Leaf keys of a merge order (getBaseKeys, struct_merge.hxx:214-223)."""
+    order = np.asarray(order).reshape(-1, 3)
+    new_keys = set()
+    base = set()
+    for r0, r1, r2 in order:
+        if int(r0) not in new_keys:
+            base.add(int(r0))
+        if int(r1) not in new_keys:
+            base.add(int(r1))
+        new_keys.add(int(r2))
+    return base
+
+
+def collect_sub_keys(tree: MergeTree, sort=True) -> List[np.ndarray]:
+    """collectSubKeys (tree_build.hxx:105-121): leaf labels under each node."""
+    out: List[np.ndarray] = [None] * tree.n_nodes  # type: ignore
+    for i in range(tree.n_nodes):
+        if tree.left[i] < 0:
+            out[i] = np.array([tree.keys[i]], dtype=np.int64)
+        else:
+            out[i] = np.concatenate([out[int(tree.left[i])],
+                                     out[int(tree.right[i])]])
+        if sort:
+            out[i] = np.sort(out[i])
+    return out

@@ -14,7 +14,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from ..graph.tree import MergeTree
+from ..graph.tree import MergeTree, collect_sub_keys
 
 
 def resolve_tree_greedy(tree: MergeTree, potentials) -> List[int]:
@@ -84,4 +84,76 @@ def resolve_trees_greedy(
                     validity[tj][nj] = False
                     for a in trees[tj].ancestors(nj):
                         validity[tj][a] = False
+    return picks
+
+
+def resolve_trees_greedy_subset(
+    trees: Sequence[MergeTree], potentials: Sequence[np.ndarray]
+) -> List[List[int]]:
+    """Subset-inclusion multi-tree resolution (tree_greedy.hxx:155-230).
+
+    After picking the best node across trees, each *other* tree greedily
+    accepts (from highest node index down) any still-valid node touched by
+    the picked leaf set whose own leaf set is a subset of the pick's;
+    everything else touched is invalidated.  Returns per-tree pick lists.
+    """
+    n_tree = len(trees)
+    pots = [np.asarray(p, dtype=np.float64) for p in potentials]
+    validity = [np.ones(t.n_nodes, dtype=bool) for t in trees]
+    sub_keys = [[set(map(int, sk)) for sk in collect_sub_keys(t, sort=False)]
+                for t in trees]
+    lnmap = []
+    for t in trees:
+        m = {}
+        for i in np.nonzero(t.is_leaf)[0]:
+            m[int(t.keys[i])] = int(i)
+        lnmap.append(m)
+
+    picks: List[List[int]] = [[] for _ in range(n_tree)]
+    while True:
+        best = (-1, -1)
+        best_pot = -np.inf
+        for ti in range(n_tree):
+            v = validity[ti]
+            if not v.any():
+                continue
+            idx = np.nonzero(v)[0]
+            local = idx[np.argmax(pots[ti][idx])]
+            if pots[ti][local] > best_pot:
+                best = (ti, int(local))
+                best_pot = pots[ti][local]
+        if best[0] < 0:
+            break
+        ti, ni = best
+        picks[ti].append(ni)
+        t = trees[ti]
+        validity[ti][ni] = False
+        for a in t.ancestors(ni):
+            validity[ti][a] = False
+        # leaf labels via traverseDescendants: EXCLUDES the picked node, so
+        # a picked leaf contributes no labels (reference quirk, kept)
+        leaf_labels = []
+        for d in t.descendants(ni):
+            validity[ti][d] = False
+            if t.left[d] < 0:
+                leaf_labels.append(int(t.keys[d]))
+        pick_keys = sub_keys[ti][ni]
+        for tj in range(n_tree):
+            if tj == ti:
+                continue
+            node_indices = set()
+            for ll in leaf_labels:
+                nj = lnmap[tj][ll]  # reference assumes present (no check)
+                node_indices.add(nj)
+                for a in trees[tj].ancestors(nj):
+                    if validity[tj][a]:
+                        node_indices.add(a)
+            for nj in sorted(node_indices, reverse=True):
+                if validity[tj][nj] and sub_keys[tj][nj] <= pick_keys:
+                    picks[tj].append(nj)
+                    validity[tj][nj] = False
+                    for d in trees[tj].descendants(nj):
+                        validity[tj][d] = False
+                else:
+                    validity[tj][nj] = False
     return picks

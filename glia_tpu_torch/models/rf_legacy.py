@@ -339,3 +339,8 @@ def forest_to_legacy(model: ForestModel, mtry: int = 0) -> dict:
 def load_legacy_forest(path) -> ForestModel:
     """Read a reference-binary model file directly into a ForestModel."""
     return legacy_to_forest(read_legacy_model(path))
+
+
+def save_legacy_forest(path, model: ForestModel, mtry: int = 0) -> None:
+    """Write a ForestModel as a reference-readable binary model file."""
+    write_legacy_model(path, forest_to_legacy(model, mtry))

@@ -9,11 +9,14 @@ module is imported, so the package imports on machines without CUDA.
 Every wrapper takes CUDA tensors only and raises on anything else; a
 failed build or launch raises too.  ``launches`` counts each kernel's
 launches (and only those), so a run can show which kernels its main path
-went through.
+went through.  A call made while a CUDA graph captures launches nothing
+then: it counts into the tally of ``graph_launch_tally``, and the graph
+adds that tally to ``launches`` at each replay (``count_graph_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -40,11 +43,42 @@ FOREST_STATIC_SMEM = 64
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# the tallies of the CUDA graphs being captured, innermost last
+_graph_tallies: list = []
 
 
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def graph_launch_tally():
+    """Collect, per kernel, the launches that a CUDA graph captured in this
+    block will make at each replay.  A captured call runs nothing until
+    the graph replays, so it counts here and not in ``launches``; the
+    graph's owner passes the tally to ``count_graph_replay`` after every
+    replay.  A capture outside such a block counts nowhere."""
+    tally = {name: 0 for name in SOURCES}
+    _graph_tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _graph_tallies.pop()
+
+
+def count_graph_replay(tally: Dict[str, int]):
+    """Add the launches of one replay of a graph to ``launches``."""
+    for name, n in tally.items():
+        launches[name] += n
+
+
+def _count_launch(name: str):
+    if torch.cuda.is_current_stream_capturing():
+        if _graph_tallies:
+            _graph_tallies[-1][name] += 1
+    else:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -259,7 +293,7 @@ def forest_votes_cuda(X: torch.Tensor, tables: ForestTables,
     if rc != 0:
         raise RuntimeError(f"forest_votes kernel launch failed: CUDA error "
                            f"{rc} (plan {plan})")
-    launches["forest_votes"] += 1
+    _count_launch("forest_votes")
     return out
 
 
@@ -306,7 +340,7 @@ def segment_sum_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{rc}")
-    launches["segment_sum"] += 1
+    _count_launch("segment_sum")
     return out
 
 

@@ -443,7 +443,9 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
     the wall seconds of each stage (t_watershed, t_pre_merge, t_rag,
     t_merge_loop, t_tree_resolve, t_segmentation; t_build_state for
     device_bc; t_features, t_predict for device and host; t_exact_saliency
-    for device) and the merge loop's counters.
+    for device, whose mean policy, once its plan is known, runs merge and
+    saliencies as one program timed as t_plan_program instead of the
+    two) and the merge loop's counters.
 
     Returns (segmentation, info dict with seg0, order, probs, n_picks)."""
     if engine not in ENGINES:

@@ -56,7 +56,12 @@ def test_scan_covers_the_package():
                 "parallel/merge_shard.py", "parallel/bc_tree_shard.py",
                 "dryrun.py", "utils/__init__.py", "utils/profiling.py",
                 "utils/checkpoint.py", "utils/jobs.py",
-                "examples/run_hmt_512.py"):
+                "examples/run_hmt_512.py", "utils/cache.py",
+                "features/__init__.py", "graph/__init__.py",
+                "infer/__init__.py", "metrics/__init__.py",
+                "models/__init__.py", "learn/__init__.py",
+                "ops/__init__.py", "__init__.py",
+                "examples/merge_steady_state.py"):
         assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
@@ -67,3 +72,28 @@ def test_no_jax_or_glia_tpu_import(path):
     bad = [(name, line) for name, line in _imported_roots(path)
            if name in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_subpackage_builds_nothing():
+    """A fresh interpreter imports the port's root and every subpackage
+    (their exports included) without importing JAX or glia_tpu,
+    initializing CUDA or loading a kernel library."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, importlib, torch\n"
+        "subs = ['', '.features', '.graph', '.infer', '.metrics', "
+        "'.models', '.learn', '.ops', '.utils', '.io', '.link3d', "
+        "'.parallel', '.data', '.cli', '.constants', '.ops.cuda']\n"
+        "for s in subs:\n"
+        "    importlib.import_module('glia_tpu_torch' + s)\n"
+        "from glia_tpu_torch.ops import cuda\n"
+        "assert not cuda._libs, cuda._libs\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'glia_tpu'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -312,8 +312,12 @@ def test_greedy_merge_device_defaults_match(bench512, policy):
 
 
 def test_merge_batched_device_exact_default_matches(bench512):
+    """A first call on the shape (no plan, no depth capacity memoized):
+    the discovery path, whose two stages are timed apart."""
     data, rag = bench512
     u, v, s, c = jm.edge_mean_arrays(rag, data["pb"])
+    for memo in (tm._PLAN_MEMO, tm._PLAN_LAST_STEPS, tm._EXACT_SAL_L):
+        memo.clear()
     want = jm.merge_batched_device_exact(u, v, s, c, rag.n_regions)
     st = {}
     got = tm.merge_batched_device_exact(u, v, s, c, rag.n_regions,

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import glia_tpu.pipeline as jp
+import glia_tpu_torch.graph.merge_device as tmd
 import glia_tpu_torch.native as tn
 import glia_tpu_torch.pipeline as tp
 from glia_tpu.data.synthetic import synthetic_em_slice
@@ -190,9 +191,13 @@ def _glia_tpu_device_steps(s, jmodel, backend):
 
 @pytest.mark.parametrize("backend", ["np", "device"])
 def test_hmt_segment_device_matches_glia_tpu_steps(device_case, backend):
+    """A first merge on the shape: the stages are timed apart (a later
+    mean merge with exact saliencies is one program, t_plan_program)."""
     s, jmodel, model = device_case
     want_seg, want = _glia_tpu_device_steps(
         s, jmodel, "np" if backend == "np" else "jax")
+    for memo in (tmd._PLAN_MEMO, tmd._PLAN_LAST_STEPS, tmd._EXACT_SAL_L):
+        memo.clear()
     stats = {}
     got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,
                                   engine="device", backend=backend,
