@@ -11,7 +11,8 @@ classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
 and on ``engine="host"``; then forests trained by the port's CART trainer
 on every engine; then bench.py's merge flow on its 4096 x 4096 section;
-then the sharded path (BASELINE config #5) on torch.distributed ranks;
+then the sharded path (BASELINE config #5) on torch.distributed ranks,
+and config #5 end to end on a cut SNEMI3D-scale volume;
 then the stack paths at BASELINE config #2's scale (3D HMT on a volume of
 512 x 512 sections, LINK3D across its sections) and the file-bus CLI.
 Phases, one JSON line each:
@@ -98,6 +99,22 @@ Phases, one JSON line each:
           (rows equal to mode="fused"'s, float64 exact saliencies within
           1e-12 of the C++ replay, the median wall of three calls); rank
           0's B2 sums and B1 batches held to the plain versions
+  slice_snemi
+          BASELINE config #5 end to end (tools/run_snemi_e2e.py's flow,
+          glia_tpu_torch.examples.run_snemi_e2e) at SNEMI_Z_RUN sections
+          of 1024^2 with 4 cells a section (seed 23): watershed, RAG,
+          truth-derived labels, 40 halo train steps on one NCCL rank,
+          full-width scoring, the sharded merge and exact saliencies in
+          float64, threshold cuts scored from the region-truth pair table
+          on the card; hard: rows equal to mode="fused"'s in float64 and
+          again on a second call, exact saliencies within 1e-12 of the
+          C++ replay, device pair counts equal to the host's int64
+          counts, the voxel-level oracle within 1e-9 of the pair-table VI
+          and adapted Rand error, the first loss within 1e-4 of the
+          single-process loss and the last below it, B2 launched on every
+          stage and one sum of each kind held to the plain sum; then the
+          partition and halo counters of 8 shards and edges/s of the halo
+          step (run_snemi_sharded) on the same volume
   slice_3d
           BASELINE config #2 (tools/run_3d_hmt.py's flow): a synthetic
           volume of VOL_Z_RUN (52) sections of 512^2 with 4 cells a
@@ -672,11 +689,12 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
     read the card from the host and cannot be captured)."""
     import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
+    import glia_tpu_torch.metrics.device as mdev
     import glia_tpu_torch.parallel.bc_tree_shard as bts
     import glia_tpu_torch.parallel.merge_shard as msh
     import glia_tpu_torch.parallel.rag_shard as rsh
 
-    callers = (md, mbd, rsh, msh, bts)
+    callers = (md, mbd, rsh, msh, bts, mdev)
     calls = []
     real = md.segment_sum_auto
 
@@ -2478,6 +2496,196 @@ def phase_slice_parallel(bench, dev, seed):
     return paths, b1, b2
 
 
+# BASELINE config #5 end to end (tools/run_snemi_e2e.py's flow): a
+# synthetic EM volume of 100 x 1024 x 1024 voxels and 4 cells a section,
+# seed 23, watershed level 0.01, 40 halo train steps, the ranks world 1
+# on NCCL.  A cut depth keeps the 1024^2 sections and the cell density.
+# The depth slice_snemi runs at: the phase took 102 s at 12 sections, 45
+# of them starting the three spawns' ranks, about 4.6 s a section (the
+# voxel oracle 1.8 of them); at 100 sections the chain alone takes 483 s
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md sections 4-5)
+SNEMI_Z_RUN = 8
+SNEMI_SIDE = 1024
+SNEMI_STEPS = 40
+SNEMI_TIMEOUT_S = 600
+# the first step's loss on one rank against the single-process loss
+SNEMI_LOSS_RTOL = 1e-4
+
+
+def host_sum(call):
+    """A captured segment sum's inputs as host arrays, to leave a rank."""
+    values, ids, S, is_sorted = call
+    return values.cpu().numpy(), ids.cpu().numpy(), S, is_sorted
+
+
+def snemi_train_rank(mesh, cfg, block):
+    """run_snemi_e2e.train_rank, its first segment sum (the halo partials
+    by first endpoint, B2's atomic entry) kept to be held to the plain
+    sum."""
+    from glia_tpu_torch.examples import run_snemi_e2e as e2e
+
+    res = {}
+    sums = capture_segment_sums(
+        lambda: res.update(e2e.train_rank(mesh, cfg, block)), first=1)
+    res["b2_sample"] = host_sum(sums[0])
+    return res
+
+
+def snemi_merge_rank(mesh, case):
+    """run_snemi_e2e.merge_rank, its first merge dedupe and first LCA sum
+    (B2's sorted entry) kept, then the sharded merge once more on the
+    same inputs: ``repeat_identical`` on rank 0."""
+    from glia_tpu_torch.examples import run_snemi_e2e as e2e
+    from glia_tpu_torch.parallel.merge_shard import merge_batched_sharded
+
+    res = {}
+    sums = capture_segment_sums(
+        lambda: res.update(e2e.merge_rank(mesh, case)))
+    res["b2_samples"] = {
+        "merge_dedupe": host_sum(next(c for c in sums
+                                      if c[0].ndim == 2 and c[3])),
+        "lca_sum": host_sum(next(c for c in sums
+                                 if c[0].ndim == 1 and c[3]))}
+    again, _, n2 = merge_batched_sharded(
+        *(case[k] for k in ("u", "v", "s", "c", "R")), mesh, dmax=e2e.DMAX,
+        max_supersteps=e2e.MAX_SUPERSTEPS, dtype=torch.float64)
+    if mesh.rank == 0:
+        res["repeat_identical"] = (n2 == res["n"] and np.array_equal(
+            again[:n2].cpu().numpy(), res["rows"]))
+    return res
+
+
+def phase_slice_snemi(dev, z):
+    """BASELINE config #5 end to end on the card
+    (glia_tpu_torch.examples.run_snemi_e2e.snemi_e2e, world 1 on NCCL) at
+    ``z`` sections of 1024^2, then the partition and halo counters of 8
+    shards and the halo step's time (run_snemi_sharded.snemi_sharded) on
+    the same volume.  Hard checks:
+
+    (a) the sharded merge's rows (float64) equal merge_batched_device(
+        mode="fused")'s in float64 on the card; a second sharded call
+        gives them again;
+    (b) the sharded exact saliencies within EXACT_F64_RTOL of the C++
+        replay;
+    (c) the device pair counts equal the host's int64 counts at the
+        watershed cut and at every tau (snemi_e2e raises otherwise);
+    (d) the voxel-level host oracle at tau 0.7 within 1e-9 of the
+        pair-table VI and adapted Rand error (snemi_e2e raises otherwise);
+    (e) the first step's loss within SNEMI_LOSS_RTOL of the
+        single-process loss on the same weights; the last below the first;
+    (f) B2 launched on each of the paths snemi_train, snemi_score,
+        snemi_merge, snemi_replay and snemi_eval; one sum of each kind on
+        them held to the plain sum and timed: the halo partials (atomic,
+        float32), the scoring's incident sum (atomic, float32), the pair
+        counts (atomic, float64, S * T), the merge dedupe and the LCA sum
+        (sorted, float64).
+
+    Returns (launch counts per path, B2's per-shape results)."""
+    from glia_tpu_torch import dryrun
+    from glia_tpu_torch.examples import run_snemi_e2e as e2e
+    from glia_tpu_torch.examples import run_snemi_sharded as shd
+    from glia_tpu_torch.examples import snemi
+    from glia_tpu_torch.graph import merge_device as md
+    from glia_tpu_torch.models.mlp import mlp2_init
+    from glia_tpu_torch.parallel.train import halo_feat_dims
+
+    t_phase = time.perf_counter()
+    failures = []
+    vol = snemi.make_volume(z, SNEMI_SIDE, 4 * z,
+                            level=snemi.DEFAULT_LEVEL)
+    res, arrays = {}, {}
+    main_sums = capture_segment_sums(lambda: res.update(e2e.snemi_e2e(
+        vol, shards=1, steps=SNEMI_STEPS, device=dev, host_check=True,
+        timeout_s=SNEMI_TIMEOUT_S, train_fn=snemi_train_rank,
+        merge_fn=snemi_merge_rank, arrays=arrays)))
+    paths = {f"snemi_{k}": n for k, n in res["launches"].items()}
+    for name in paths:
+        require_launches(paths, name, ["segment_sum"])
+
+    # (a) rows against the single-process fused engine, both float64
+    u, v, s, c, rows = (arrays[k] for k in ("u", "v", "s", "c", "rows"))
+    R = vol.rag.n_regions
+    t = time.perf_counter()
+    o_f, _, n_f = md.merge_batched_device(
+        u, v, s, c, R, max_supersteps=e2e.MAX_SUPERSTEPS,
+        dtype=torch.float64, mode="fused", dmax=e2e.DMAX, device=dev)
+    fused_s = time.perf_counter() - t
+    same_rows = n_f == len(rows) and np.array_equal(
+        o_f[:n_f].cpu().numpy(), rows)
+    repeat = arrays["merge_ranks"][0]["repeat_identical"]
+    if not same_rows:
+        failures.append(f"sharded rows ({len(rows)}) differ from fused's "
+                        f"({n_f}) in float64")
+    if not repeat:
+        failures.append("a second sharded merge gave other rows")
+    # (b) exact saliencies against the C++ replay
+    gap64 = rel_gap(arrays["exact"], md.replay_exact_saliency(
+        u, v, s, c, rows, engine="native"))
+    if gap64 > EXACT_F64_RTOL:
+        failures.append(f"float64 exact saliencies differ from the C++ "
+                        f"replay by {gap64}")
+    # (d) is snemi_e2e's own raise; its gaps are printed
+    chk = res["host_check"]
+    if max(chk["vi_gap"], chk["rand_error_gap"]) > e2e.HOST_CHECK_TOL:
+        failures.append(f"host oracle: {chk}")
+    # (e) the first step's loss against one process's
+    _, D = halo_feat_dims(2, e2e.N_BINS)
+    loss1, _ = dryrun._single_process_loss_and_grad(
+        vol.rag, (vol.pb, vol.intensity), arrays["labels"],
+        mlp2_init(D, e2e.N1, e2e.N2, 0), dev)
+    losses = res["losses"]
+    loss_rel = abs(losses[0] - loss1) / abs(loss1)
+    if loss_rel > SNEMI_LOSS_RTOL or not losses[-1] < losses[0]:
+        failures.append(f"losses {losses[0]} .. {losses[-1]} against the "
+                        f"single-process {loss1} (rel {loss_rel})")
+    emit({"phase": "slice_snemi", "part": "e2e", "Z": z,
+          "side": SNEMI_SIDE, "n_cells": 4 * z, "R": res["regions"],
+          "E": res["edges"], "world": res["shards"],
+          "backend": res["backend"], "stages_s": res["stages_s"],
+          "wall_s": res["wall_s"], "rank_s": res["rank_s"],
+          "loss_trace": res["loss_trace"], "loss_single": loss1,
+          "loss_rel": loss_rel, "edge_acc": res["edge_acc"],
+          "watershed_vi": res["watershed_vi"],
+          "watershed_rand_error": res["watershed_rand_error"],
+          "cuts": res["cuts"], "merges": res["merges"],
+          "merge_stats": res["merge_stats"],
+          "rows_equal_fused_f64": same_rows, "fused_f64_s": fused_s,
+          "repeat_identical": repeat, "f64_exact_rel_gap_vs_replay": gap64,
+          "pair_counts_equal_host": True, "host_check": chk,
+          "peak_rss_gb": res["peak_rss_gb"],
+          "card_peak_gb": res["card_peak_gb"], "launches": paths})
+
+    # the partition and halo counters and the halo step's time
+    sh = shd.snemi_sharded(vol, shards=8, device=dev,
+                           timeout_s=SNEMI_TIMEOUT_S)
+    emit({"phase": "slice_snemi", "part": "sharded", **{k: sh[k] for k in (
+        "shards", "world", "backend", "cut_fraction", "balance",
+        "halo_rows", "dense_rows", "comm_ratio_vs_dense",
+        "halo_bytes_per_step", "step_s", "steps_s", "edges_per_s",
+        "loss_first", "loss_after", "stages_s", "spawn_wall_s",
+        "rank_card_peak_gb")}})
+
+    # (f) one sum of each kind, held to the plain sum and timed
+    score = next(x for x in main_sums if x[0].ndim == 2
+                 and x[0].dtype == torch.float32)
+    pairs = next(x for x in main_sums if x[0].ndim == 1
+                 and x[0].dtype == torch.float64)
+    as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    cases = [("snemi_halo_partials",
+              *arrays["train_ranks"][0]["b2_sample"]),
+             ("snemi_score_incident", *score),
+             ("snemi_pair_counts", *pairs)]
+    cases += [(f"snemi_{k}", *x) for k, x in
+              arrays["merge_ranks"][0]["b2_samples"].items()]
+    b2 = [check_segment_sum(name, as_dev(vals), as_dev(ids), S, srt)
+          for name, vals, ids, S, srt in cases]
+    emit({"phase": "slice_snemi", "part": "done",
+          "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_snemi: {failures}")
+    return paths, b2
+
+
 # BASELINE config #2 (BASELINE.json:8; tools/run_3d_hmt.py:52-96): a
 # synthetic EM volume of VOL_Z x 512 x 512 voxels and 400 cells, seed 17;
 # its forest trained by hmt_train (VOL_TREES trees, pre-merge 50, watershed
@@ -3044,6 +3252,9 @@ def main(argv=None):
     paths.update(par_paths)
     b1_all.append(b1_par)
     b2_shapes += b2_par
+    snemi_paths, b2_snemi = phase_slice_snemi(dev, SNEMI_Z_RUN)
+    paths.update(snemi_paths)
+    b2_shapes += b2_snemi
     vol_paths, b1_3d, b2_3d, vol = phase_slice_3d(dev, VOL_Z_RUN, args.seed)
     paths.update(vol_paths)
     b1_all += b1_3d

@@ -92,6 +92,18 @@ def _pair_marginals(seg_ids, truth_ids, counts, S, T, device):
     return c, seg, truth, row, col
 
 
+def cell_counts_device(seg_ids, truth_ids, counts, S, T,
+                       device: DeviceLike = None) -> torch.Tensor:
+    """The dense contingency table [S * T] (float64, cell ``s * T + t``)
+    of rows (seg id, truth id, count): rows of one cell add up.  One
+    segment sum (kernel B2's atomic entry on the card) of integer counts,
+    exact below 2**53 in any order, so it equals a host ``np.bincount``
+    of the same rows."""
+    dev = resolve_device(device)
+    code = _ids(seg_ids, dev) * T + _ids(truth_ids, dev)
+    return segment_sum_auto(_counts(counts, dev), code, S * T)
+
+
 def vi_from_pairs_device(seg_ids, truth_ids, counts, S, T, itk_quirk=True,
                          device: DeviceLike = None):
     """eval_vi's printed numbers from a SPARSE exact contingency table on

@@ -19,7 +19,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -47,25 +47,34 @@ def _rank_main(fn, rank, world, backend, device, store_path, args, out_q):
 
 
 def _stop(procs):
-    for p in procs:
+    started = [p for p in procs if p.pid is not None]
+    for p in started:
         if p.is_alive():
             p.kill()
-    for p in procs:
+    for p in started:
         p.join(timeout=30)
 
 
 def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
                 device: DeviceLike = None, args: Sequence = (),
-                timeout_s: float = 600.0) -> List[Any]:
-    """Run ``fn(mesh, *args)`` on ``world`` ranks; return their results
-    in rank order.
+                timeout_s: float = 600.0,
+                rank_args: Optional[Sequence[Sequence]] = None) -> List[Any]:
+    """Run ``fn(mesh, *args, *rank_args[rank])`` on ``world`` ranks;
+    return their results in rank order.
 
     ``fn`` must be importable by name (a module-level function) and its
-    arguments and result picklable.  ``device``: each rank's device as
-    ``make_mesh`` resolves it (the CUDA card by default, ``"cpu"`` for the
-    plain path).  Raises RuntimeError with the failing rank's traceback,
-    or TimeoutError after ``timeout_s`` seconds; no rank outlives the
-    call."""
+    arguments and result picklable.  Each rank's process is sent
+    ``args`` and its own ``rank_args`` entry only, so a rank can take its
+    block of a large input without the others' blocks.  ``device``: each
+    rank's device as ``make_mesh`` resolves it (the CUDA card by default,
+    ``"cpu"`` for the plain path).  Raises RuntimeError with the failing
+    rank's traceback, or TimeoutError after ``timeout_s`` seconds; no
+    rank outlives the call."""
+    if rank_args is None:
+        rank_args = [()] * world
+    if len(rank_args) != world:
+        raise ValueError(f"rank_args has {len(rank_args)} entries for "
+                         f"{world} ranks")
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
     results: List[Any] = [None] * world
@@ -73,7 +82,7 @@ def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, backend, device, store,
-                                   tuple(args), out_q),
+                                   tuple(args) + tuple(rank_args[r]), out_q),
                              daemon=True)
                  for r in range(world)]
         try:

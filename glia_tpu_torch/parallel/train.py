@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.mlp import mlp2_forward, mlp2_init
-from .halo import group_edges, halo_exchange, routing_tensors
+from .halo import group_edges, halo_exchange
 from .mesh import Mesh, to_device
 from .rag_shard import edge_pixel_stats, incident_sums
 
@@ -143,8 +143,14 @@ def _edge_feats_from_pixels(px, px_mask, n_bins):
     mx = torch.where(m > 0, px, -inf).amax(dim=2)
     mx = torch.where(cnt[:, None] > 0, mx, 0.0)
     bins = torch.clamp((px * n_bins).to(torch.int32), 0, n_bins - 1)
-    one_hot = torch.nn.functional.one_hot(bins.long(), n_bins).to(px.dtype)
-    hist = (one_hot * m[..., None]).sum(dim=2) / denom[:, None, None]
+    # the bin counts are whole numbers below 2**24, exact in any order of
+    # addition: scattered into [E, n_img, n_bins] they give the bits of
+    # glia_tpu's one-hot sum, without its [E, n_img, K, n_bins] block
+    # (17 GB at SNEMI3D's 1.4M edges)
+    counts = torch.zeros(px.shape[:2] + (n_bins,), dtype=px.dtype,
+                         device=px.device)
+    counts.scatter_add_(2, bins.long(), m.expand_as(px))
+    hist = counts / denom[:, None, None]
     per_img = torch.cat([torch.stack([mean, std, mn, mx], dim=2), hist],
                         dim=2)
     E = px.shape[0]
@@ -169,12 +175,14 @@ def edge_forward_full(w, u, v, px, px_mask, edge_valid, n_regions,
     return mlp2_forward(w, feats, feats.shape[1], n1, n2)
 
 
-def shard_halo_train_inputs(mesh: Mesh, plan, part, rag, images, labels,
-                            k_pixels=32, n_bins=16):
-    """Host prep for the halo train step: per-edge boundary pixel blocks
-    of each feature image, grouped by owning shard, plus the plan's
-    routing tables and local endpoint rows, as full tensors on the mesh's
-    device."""
+def halo_train_host_inputs(plan, part, rag, images, labels, k_pixels=32):
+    """Host prep for the halo train step, every shard's rows: per-edge
+    boundary pixel blocks of each feature image grouped by owning shard
+    (px [n, E_max, n_img, K] float32, px_mask [n, E_max, K] bool), the
+    endpoints u, v (global rows) and u_loc, v_loc (rows of the shard's
+    [own; halo] table), labels and edge_valid [n, E_max], and the plan's
+    routing rows: send_ids, recv_local, fetch_local [n, n, H], own_ids
+    [n, R_own_max].  ``halo_rank_block`` cuts out what one rank reads."""
     from ..ops.pack import pack_csr_values
     from .halo import local_endpoint_indices
 
@@ -194,7 +202,7 @@ def shard_halo_train_inputs(mesh: Mesh, plan, part, rag, images, labels,
     u_p = np.full((n, E_max), rag.n_regions, np.int32)
     v_p = np.full((n, E_max), rag.n_regions, np.int32)
     px_p = np.zeros((n, E_max, n_img, k_pixels), np.float32)
-    mask_p = np.zeros((n, E_max, k_pixels), np.float32)
+    mask_p = np.zeros((n, E_max, k_pixels), bool)
     lab_p = np.zeros((n, E_max), np.float32)
     val_p = np.zeros((n, E_max), np.float32)
     labels = np.asarray(labels, np.float32)
@@ -202,21 +210,48 @@ def shard_halo_train_inputs(mesh: Mesh, plan, part, rag, images, labels,
         u_p[s, : len(g)] = ui[g]
         v_p[s, : len(g)] = vi[g]
         px_p[s, : len(g)] = px[g]
-        mask_p[s, : len(g)] = mask[g]
+        mask_p[s, : len(g)] = mask[g] > 0
         lab_p[s, : len(g)] = labels[g]
         val_p[s, : len(g)] = 1.0
     u_loc, v_loc = local_endpoint_indices(plan, part, rag, groups, E_max)
-    idx = lambda a: to_device(a.reshape(-1), mesh, torch.int64)  # noqa: E731
-    return {
-        "u": idx(u_p), "v": idx(v_p),
-        "px": to_device(px_p.reshape(n * E_max, n_img, k_pixels), mesh),
-        "px_mask": to_device(mask_p.reshape(n * E_max, k_pixels), mesh),
-        "labels": to_device(lab_p.reshape(-1), mesh),
-        "edge_valid": to_device(val_p.reshape(-1), mesh),
-        "u_loc": idx(u_loc), "v_loc": idx(v_loc),
-        **routing_tensors(mesh, plan),
-        "groups": groups, "E_max": E_max,
-    }
+    return {"u": u_p, "v": v_p, "px": px_p, "px_mask": mask_p,
+            "labels": lab_p, "edge_valid": val_p, "u_loc": u_loc,
+            "v_loc": v_loc, "send_ids": plan.send_ids,
+            "recv_local": plan.recv_local, "fetch_local": plan.fetch_local,
+            "own_ids": plan.own_ids, "E_max": E_max}
+
+
+_HALO_BLOCKS = ("u", "v", "px", "px_mask", "labels", "edge_valid", "u_loc",
+                "v_loc", "send_ids", "recv_local", "fetch_local", "own_ids")
+
+
+def halo_rank_block(host: dict, rank: int) -> dict:
+    """The rows of ``halo_train_host_inputs`` that rank ``rank``'s train
+    step reads (views, numpy), and the padded row count E_max."""
+    block = {k: host[k][rank] for k in _HALO_BLOCKS}
+    block["E_max"] = host["E_max"]
+    return block
+
+
+def halo_train_batch(mesh: Mesh, block: dict) -> dict:
+    """A rank's block (``halo_rank_block``) as tensors on the mesh's
+    device: the batch of ``make_halo_train_step``."""
+    out = {k: to_device(block[k], mesh, torch.int64)
+           for k in ("u", "v", "u_loc", "v_loc", "send_ids", "recv_local",
+                     "fetch_local", "own_ids")}
+    out.update({k: to_device(block[k], mesh, torch.float32)
+                for k in ("px", "px_mask", "labels", "edge_valid")})
+    out["E_max"] = block["E_max"]
+    return out
+
+
+def shard_halo_train_inputs(mesh: Mesh, plan, part, rag, images, labels,
+                            k_pixels=32, n_bins=16):
+    """This rank's batch of the halo train step, prepared from the full
+    host inputs (``halo_train_host_inputs``, then the rank's block).
+    ``n_bins`` is glia_tpu's argument; the host prep does not use it."""
+    host = halo_train_host_inputs(plan, part, rag, images, labels, k_pixels)
+    return halo_train_batch(mesh, halo_rank_block(host, mesh.rank))
 
 
 def clip_by_global_norm(g: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -237,21 +272,19 @@ def make_halo_train_step(mesh: Mesh, plan, n_regions: int, n_images=2,
     halo fetch -> region context -> MLP2 -> cross entropy; the gradient
     all-reduced, clipped to global norm 1 and applied by Adam(lr) (optax's
     ``chain(clip_by_global_norm(1.0), adam(lr))``).
+    ``batch`` is the rank's own (``shard_halo_train_inputs``, or
+    ``halo_train_batch`` of its ``halo_rank_block``).
     Returns (init, step, (edge_w, D)); ``step.loss_and_grad(w, batch)``
     gives the loss and the gradient before the clip."""
     edge_w, D = halo_feat_dims(n_images, n_bins)
 
-    def loss_and_grad(w, batch):
-        b = {k: mesh.shard(batch[k]) for k in
-             ("u", "v", "px", "px_mask", "labels", "edge_valid", "u_loc",
-              "v_loc", "own_ids")}
-        routes = [mesh.shard(batch[k])[0]
-                  for k in ("send_ids", "recv_local", "fetch_local")]
+    def loss_and_grad(w, b):
         feats_e, msgs = _context_msgs(b["px"], b["px_mask"],
                                       b["edge_valid"], n_bins)
         partials = incident_sums(msgs, b["u"], b["v"], n_regions + 1)
-        own, halo_rows = halo_exchange(mesh, partials, routes[0], routes[1],
-                                       b["own_ids"], routes[2])
+        own, halo_rows = halo_exchange(mesh, partials, b["send_ids"],
+                                       b["recv_local"], b["own_ids"],
+                                       b["fetch_local"])
         table = _log_compress(torch.cat([own, halo_rows], dim=0))
         feats = torch.cat([feats_e, table[b["u_loc"]], table[b["v_loc"]]],
                           dim=1).to(torch.float32)

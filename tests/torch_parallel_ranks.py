@@ -192,3 +192,14 @@ def rank_info(mesh, fail_rank=None, sleep_rank=None):
     return {"rank": mesh.rank, "world": mesh.world,
             "device": str(mesh.device), "backend": mesh.backend,
             "psum": int(total[0]), "threads": torch.get_num_threads()}
+
+
+def snemi_merge_rank(mesh, case, glia_s):
+    """tests/test_torch_snemi.py: run_snemi_e2e.merge_rank on the port's
+    payload, then again with glia_tpu's ``s`` on the same counts
+    (``on_glia_s``)."""
+    from glia_tpu_torch.examples import run_snemi_e2e as e2e
+
+    res = e2e.merge_rank(mesh, case)
+    res["on_glia_s"] = e2e.merge_rank(mesh, dict(case, s=glia_s))
+    return res
