@@ -11,6 +11,7 @@ classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
 and on ``engine="host"``; then forests trained by the port's CART trainer
 on every engine; then bench.py's merge flow on its 4096 x 4096 section;
+then glia_tpu's tools/ scripts as the port's examples;
 then the sharded path (BASELINE config #5) on torch.distributed ranks,
 and config #5 end to end on a cut SNEMI3D-scale volume;
 then the stack paths at BASELINE config #2's scale (3D HMT on a volume of
@@ -89,6 +90,18 @@ Phases, one JSON line each:
           plan store across two processes (the second's first call
           replays the stored plan with the first's rows), the dense
           device metrics and the tree scan against the host's
+  slice_tools
+          glia_tpu's scripts under tools/ as the port's examples, at the
+          tools' default arguments: bench_merge_device (fused_ms: no
+          fallback, graph replays; its cut's merge count equal to
+          fused's), bench_bc_device (B1 in the loop, the steady order
+          equal to the first), bench_forest_pallas (0 mismatches on both
+          walks; B1 held and timed at its batch), bench_bc_midcut (the
+          serial and device orders' mid-cut VI gaps within
+          tests/test_bc_midcut.py's bounds), bench_median_drift (both
+          policies, finite cut VIs), bench_scaling (1 and 2 gloo ranks
+          sharing the card, TOOLS_SCALING_WORLDS: the host plan's halo
+          rows and cut, one first loss); hard checks each
   slice_parallel
           the sharded path (glia_tpu_torch.parallel) on torch.distributed:
           dryrun.dryrun_multichip(4) on four gloo ranks sharing the card
@@ -98,7 +111,9 @@ Phases, one JSON line each:
           sharded merge at 4096^2 on four gloo ranks and on one NCCL rank
           (rows equal to mode="fused"'s, float64 exact saliencies within
           1e-12 of the C++ replay, the median wall of three calls); rank
-          0's B2 sums and B1 batches held to the plain versions
+          0's B2 sums and B1 batches held to the plain versions; the
+          dryrun's stages once more in the same ranks, with the first
+          run's bits on every rank, or the script fails
   slice_snemi
           BASELINE config #5 end to end (tools/run_snemi_e2e.py's flow,
           glia_tpu_torch.examples.run_snemi_e2e) at SNEMI_Z_RUN sections
@@ -112,12 +127,15 @@ Phases, one JSON line each:
           counts, the voxel-level oracle within 1e-9 of the pair-table VI
           and adapted Rand error, the first loss within 1e-4 of the
           single-process loss and the last below it, B2 launched on every
-          stage and one sum of each kind held to the plain sum; then the
+          stage and one sum of each kind held to the plain sum; two runs
+          with the same bits (the loss of every step, the weights, the
+          probabilities, the merge rows at every tau); then the
           partition and halo counters of 8 shards and edges/s of the halo
           step (run_snemi_sharded) on the same volume
   slice_3d
-          BASELINE config #2 (tools/run_3d_hmt.py's flow): a synthetic
-          volume of VOL_Z_RUN (52) sections of 512^2 with 4 cells a
+          BASELINE config #2 (tools/run_3d_hmt.py's flow, through the
+          example glia_tpu_torch.examples.run_3d_hmt): a synthetic
+          volume of VOL_Z_RUN (36) sections of 512^2 with 4 cells a
           section (seed 17), a forest of 80 trees trained by hmt_train on
           a (z // 4) x 256^2 subvolume (seed 31); pipeline3d.hmt3d_segment
           with its defaults (the host engine, the forest walked on the
@@ -690,11 +708,11 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
     import glia_tpu_torch.graph.merge_bc_device as mbd
     import glia_tpu_torch.graph.merge_device as md
     import glia_tpu_torch.metrics.device as mdev
-    import glia_tpu_torch.parallel.bc_tree_shard as bts
+    import glia_tpu_torch.ops.segment_csr as csr
     import glia_tpu_torch.parallel.merge_shard as msh
-    import glia_tpu_torch.parallel.rag_shard as rsh
 
-    callers = (md, mbd, rsh, msh, bts, mdev)
+    # csr: segment_sum_ordered, the fixed-order sums of parallel/
+    callers = (md, mbd, msh, mdev, csr)
     calls = []
     real = md.segment_sum_auto
 
@@ -2266,6 +2284,143 @@ def plan_store_check(rag, pb):
 
 # the sharded path (glia_tpu_torch.parallel): the ranks of its world-4
 # runs, the timed calls at bench.py's 4096^2 section, a spawn's time limit
+# slice_tools: glia_tpu's scripts under tools/ through the port's
+# examples, each at its tool's default arguments (they fit the phase's
+# budget of 150 s); the bounds of tests/test_bc_midcut.py on the mid-cut
+# VI gaps (each, and their sum)
+TOOLS_MIDCUT_MAX_DVI = 0.08
+TOOLS_MIDCUT_SUM_DVI = 0.06
+# the first halo step's loss across worlds (float32, summed in other
+# orders by other partitions)
+TOOLS_LOSS_RTOL = 1e-4
+# bench_scaling's section: the tool's defaults (side, cells)
+TOOLS_SCALING = (512, 900)
+# the worlds slice_tools runs bench_scaling at, cut from the tool's 1, 2,
+# 4 and 8: ranks sharing the card start one after another, about 12 s
+# each, and the four worlds took 191 s of the phase's budget of 150 s
+# (15 / 27 / 50 / 97 s; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 4)
+TOOLS_SCALING_WORLDS = (1, 2)
+
+
+def phase_slice_tools(dev, seed):
+    """glia_tpu's scripts under tools/ as the port's examples
+    (glia_tpu_torch.examples), through their functions on the card at the
+    tools' default arguments, each with launch counts:
+
+    - bench_merge_device (1024^2, (1024 // 14)^2 cells), mode fused_ms and
+      then fused: no fallback of fused_ms, its staged calls replaying the
+      plan's CUDA graph, and its threshold cut keeping as many merges as
+      fused's, or the script fails;
+    - bench_bc_device (512^2, 120 trees): B1 launched in the merge loop,
+      the steady call's order and probabilities equal to the first's, or
+      the script fails;
+    - bench_forest (8192 x 96, 120 trees), both walks: 0 mismatches in the
+      256 checked rows, or the script fails; B1 held to the plain walk
+      and timed at that batch (path tools_forest);
+    - bc_midcut_compare (512^2, 60 trees): serial and device rows at five
+      taus, every |dVI| within TOOLS_MIDCUT_MAX_DVI and their sum within
+      TOOLS_MIDCUT_SUM_DVI (tests/test_bc_midcut.py's bounds), or the
+      script fails;
+    - median_drift (1024^2) for median and median_minsize: the tool's
+      keys present and every cut VI finite, or the script fails;
+    - bench_scaling (512^2, 900 cells) at TOOLS_SCALING_WORLDS gloo ranks
+      sharing the card: halo_rows and cut_fraction equal to the host
+      plan's, the first step's loss equal across worlds within
+      TOOLS_LOSS_RTOL, or the script fails.
+
+    Returns (launch counts per path, B1's line at the forest batch)."""
+    from glia_tpu_torch.examples import (bench_bc_device, bench_bc_midcut,
+                                         bench_forest_pallas,
+                                         bench_median_drift,
+                                         bench_merge_device, bench_scaling)
+    from glia_tpu_torch.parallel.halo import HaloPlan
+    from glia_tpu_torch.parallel.partition import partition_rag
+
+    t_phase = time.perf_counter()
+    paths, failures, seconds = {}, [], {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        out, _ = counted_run(paths, name, fn)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    merge = {mode: run(f"tools_merge_{mode}", lambda: (
+        bench_merge_device.bench_merge_device(mode=mode, device=dev)))
+        for mode in ("fused_ms", "fused")}
+    ms_stats = merge["fused_ms"]["stats"]
+    if ms_stats.get("fallback") is not False or not ms_stats["plan_graph"]:
+        failures.append(f"bench_merge_device fused_ms: {ms_stats}")
+    if merge["fused_ms"]["cut_merges"] != merge["fused"]["cut_merges"]:
+        failures.append("bench_merge_device: the threshold cuts of fused_ms "
+                        "and fused keep other merge counts")
+
+    bc = run("tools_bc_device",
+             lambda: bench_bc_device.bench_bc_device(device=dev))
+    require_launches(paths, "tools_bc_device", ["forest_votes"])
+    if not bc["steady_equal_first"]:
+        failures.append("bench_bc_device: the steady call's order differs "
+                        "from the first call's")
+
+    forest = run("tools_forest",
+                 lambda: bench_forest_pallas.bench_forest(device=dev))
+    if forest["plain"]["mismatches"] or forest["cuda"]["mismatches"]:
+        failures.append(f"bench_forest: mismatches plain "
+                        f"{forest['plain']['mismatches']}, cuda "
+                        f"{forest['cuda']['mismatches']}")
+    model, X = bench_forest_pallas.forest_case(forest["B"], forest["T"],
+                                               forest["D"])
+    b1 = phase_kernel(torch.as_tensor(X, device=dev), model, seed,
+                      path="tools_forest")
+
+    midcut = run("tools_bc_midcut",
+                 lambda: bench_bc_midcut.bc_midcut_compare(device=dev))
+    dvis = [r["dvi"] for r in midcut]
+    if len(midcut) != len(bench_bc_midcut.TAUS) \
+            or max(abs(d) for d in dvis) > TOOLS_MIDCUT_MAX_DVI \
+            or sum(dvis) > TOOLS_MIDCUT_SUM_DVI:
+        failures.append(f"bc_midcut_compare: {midcut}")
+
+    drift = {p: run(f"tools_median_drift_{p}", lambda: (
+        bench_median_drift.median_drift(policy=p, device=dev)))
+        for p in bench_median_drift.POLICIES}
+    for p, d in drift.items():
+        vis = [d.get(k) for k in ("vi_serial", "vi_stale", "vi_exact")]
+        if not all(v is not None and np.isfinite(v) for v in vis) \
+                or not {"dvi_stale", "dvi_exact", "edges"} <= set(d):
+            failures.append(f"median_drift {p}: {d}")
+
+    t = time.perf_counter()
+    scaling = bench_scaling.bench_scaling(
+        *TOOLS_SCALING, worlds=TOOLS_SCALING_WORLDS, device=dev)
+    seconds["tools_scaling"] = time.perf_counter() - t
+    paths["tools_scaling"] = sum_launches(r["launches"] for r in scaling)
+    require_launches(paths, "tools_scaling", ["segment_sum"])
+    _, rag = bench_scaling.scaling_section(*TOOLS_SCALING)
+    loss0 = scaling[0]["loss_first"]
+    for r in scaling:
+        part = partition_rag(rag, r["shards"])
+        plan = HaloPlan(part, rag)
+        if (r["halo_rows"], r["cut_fraction"]) != (plan.comm_rows,
+                                                   part.cut_fraction):
+            failures.append(f"bench_scaling at {r['shards']}: halo rows / "
+                            f"cut {r['halo_rows']} / {r['cut_fraction']} "
+                            f"against the plan's {plan.comm_rows} / "
+                            f"{part.cut_fraction}")
+        if abs(r["loss_first"] - loss0) > TOOLS_LOSS_RTOL * abs(loss0):
+            failures.append(f"bench_scaling at {r['shards']}: first loss "
+                            f"{r['loss_first']} against {loss0}")
+
+    emit({"phase": "slice_tools", "bench_merge_device": merge,
+          "bench_bc_device": bc, "bench_forest": forest,
+          "bc_midcut": midcut, "median_drift": drift,
+          "bench_scaling": scaling, "seconds": seconds,
+          "launches": paths, "phase_s": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"slice_tools: {failures}")
+    return paths, b1
+
+
 PARALLEL_WORLD = 4
 PARALLEL_REPS = 3
 PARALLEL_TIMEOUT_S = 600
@@ -2308,12 +2463,34 @@ def parallel_bench_rank(mesh, case):
             "backend": mesh.backend}
 
 
+def same_stages(a, b, stages=("train", "merge", "bc")):
+    """Per stage of two dryrun._dryrun_rank results: every array and value
+    the same, bit for bit (merge stats aside)."""
+    return {st: all(np.array_equal(x, b[st][k], equal_nan=True)
+                    if isinstance(x, np.ndarray) else x == b[st][k]
+                    for k, x in a[st].items() if k != "stats")
+            for st in stages}
+
+
 def parallel_dryrun_rank(mesh, case):
     """One rank of dryrun.dryrun_multichip: its three stages
-    (dryrun._dryrun_rank).  On rank 0 every B2 sum and every B1 batch of
-    them is captured and held to the plain versions on the card; its
-    result adds ``held``: what was held and the first sum of each
+    (dryrun._dryrun_rank), then all three once more in the same ranks:
+    ``rerun_identical`` per stage (the halo step's loss, gradient and
+    losses, the merge's rows and saliencies, the BC rows and scores with
+    the first run's bits).  On rank 0 every B2 sum and every B1 batch of
+    the first run is captured and held to the plain versions on the card;
+    its result adds ``held``: what was held and the first sum of each
     (rank, width, sorted) kind for timing."""
+    from glia_tpu_torch import dryrun
+
+    res = parallel_dryrun_first(mesh, case)
+    res["rerun_identical"] = same_stages(res,
+                                         dryrun._dryrun_rank(mesh, case))
+    return res
+
+
+def parallel_dryrun_first(mesh, case):
+    """The first run of parallel_dryrun_rank."""
     from glia_tpu_torch import dryrun
     from glia_tpu_torch.models.forest import forest_votes_torch
     from glia_tpu_torch.ops import cuda as kcuda
@@ -2367,7 +2544,9 @@ def phase_slice_parallel(bench, dev, seed):
         steps lower the loss), the sharded merge (rows equal to
         merge_batched_device(mode="fused"), exact saliencies = host replay,
         cut VI 0) and the sharded BC features (allclose to TreeFeatures,
-        scores = the host walk); kernel launches summed over the ranks;
+        scores = the host walk); the three stages once more in the same
+        ranks, every rank's results with the first run's bits, or the
+        script fails; kernel launches summed over the ranks;
         B1 against the plain walk at the BC batch; in the same ranks,
         rank 0's B2 sums and B1 batches of the three stages held to the
         plain versions on the card (parallel_dryrun_rank), B2 timed at
@@ -2398,6 +2577,10 @@ def phase_slice_parallel(bench, dev, seed):
                                   timeout_s=PARALLEL_TIMEOUT_S,
                                   rank_fn=parallel_dryrun_rank)
     held = rep["ranks"][0]["held"]
+    rerun = [r["rerun_identical"] for r in rep["ranks"]]
+    if not all(all(r.values()) for r in rerun):
+        failures.append(f"a second run of the dryrun's stages gave other "
+                        f"bits: {rerun}")
     for stage in ("train", "merge", "bc"):
         paths[f"parallel_{stage}"] = sum_launches(
             r[stage] for r in rep["launches_by_rank"])
@@ -2413,6 +2596,7 @@ def phase_slice_parallel(bench, dev, seed):
               "grad_rel", "merges", "merge_stats", "cut_vi", "bc_level",
               "bc_merges", "bc_feats_max_abs_err", "seconds_by_rank",
               "host_staged_bytes")},
+          "rerun_identical": rerun,
           "launches": {p: paths[p] for p in paths}})
 
     # (b) bench.py's section, PARALLEL_WORLD gloo ranks and 1 nccl rank
@@ -2520,23 +2704,32 @@ def host_sum(call):
 
 def snemi_train_rank(mesh, cfg, block):
     """run_snemi_e2e.train_rank, its first segment sum (the halo partials
-    by first endpoint, B2's atomic entry) kept to be held to the plain
-    sum."""
+    by first endpoint, B2's sorted entry in the batch's fixed order) kept
+    to be held to the plain sum; then the whole training once more in the
+    same rank, from the same block: ``rerun_identical`` when the loss of
+    every step and rank 0's weights have the first run's bits.  The
+    launch counts are the first run's."""
     from glia_tpu_torch.examples import run_snemi_e2e as e2e
 
     res = {}
     sums = capture_segment_sums(
         lambda: res.update(e2e.train_rank(mesh, cfg, block)), first=1)
     res["b2_sample"] = host_sum(sums[0])
+    again = e2e.train_rank(mesh, cfg, block)
+    res["rerun_identical"] = (
+        again["losses"] == res["losses"]
+        and (mesh.rank != 0 or np.array_equal(again["w"], res["w"])))
     return res
 
 
 def snemi_merge_rank(mesh, case):
     """run_snemi_e2e.merge_rank, its first merge dedupe and first LCA sum
-    (B2's sorted entry) kept, then the sharded merge once more on the
-    same inputs: ``repeat_identical`` on rank 0."""
+    (B2's sorted entry) kept, then the sharded merge and its exact
+    saliencies once more on the same inputs: ``repeat_identical`` on rank
+    0, and the second run's rows and saliencies (``rows2``, ``exact2``)."""
     from glia_tpu_torch.examples import run_snemi_e2e as e2e
-    from glia_tpu_torch.parallel.merge_shard import merge_batched_sharded
+    from glia_tpu_torch.parallel.merge_shard import (exact_saliency_sharded,
+                                                     merge_batched_sharded)
 
     res = {}
     sums = capture_segment_sums(
@@ -2549,9 +2742,14 @@ def snemi_merge_rank(mesh, case):
     again, _, n2 = merge_batched_sharded(
         *(case[k] for k in ("u", "v", "s", "c", "R")), mesh, dmax=e2e.DMAX,
         max_supersteps=e2e.MAX_SUPERSTEPS, dtype=torch.float64)
+    rows2 = again[:n2].cpu().numpy()
+    exact2 = exact_saliency_sharded(
+        *(case[k] for k in ("u", "v", "s", "c")), rows2, case["R"], mesh,
+        dtype=torch.float64)
     if mesh.rank == 0:
-        res["repeat_identical"] = (n2 == res["n"] and np.array_equal(
-            again[:n2].cpu().numpy(), res["rows"]))
+        res["repeat_identical"] = (n2 == res["n"]
+                                   and np.array_equal(rows2, res["rows"]))
+        res.update(rows2=rows2, exact2=exact2)
     return res
 
 
@@ -2575,10 +2773,16 @@ def phase_slice_snemi(dev, z):
         single-process loss on the same weights; the last below the first;
     (f) B2 launched on each of the paths snemi_train, snemi_score,
         snemi_merge, snemi_replay and snemi_eval; one sum of each kind on
-        them held to the plain sum and timed: the halo partials (atomic,
-        float32), the scoring's incident sum (atomic, float32), the pair
-        counts (atomic, float64, S * T), the merge dedupe and the LCA sum
-        (sorted, float64).
+        them held to the plain sum and timed: the halo partials (sorted,
+        float32), the scoring's incident sum (sorted, float32), the pair
+        counts (atomic, float64, S * T: whole numbers, exact in any
+        order), the merge dedupe and the LCA sum (sorted, float64);
+    (g) two runs give the same bits: the training once more in the same
+        rank (the loss of all SNEMI_STEPS steps and the final weights),
+        the scoring once more with those weights (the probabilities), and
+        the sharded merge and exact saliencies once more in the same
+        ranks (the merge rows kept at every tau).  Equal probabilities
+        make equal merge inputs, so the second merge is the second run's.
 
     Returns (launch counts per path, B2's per-shape results)."""
     from glia_tpu_torch import dryrun
@@ -2624,6 +2828,22 @@ def phase_slice_snemi(dev, z):
     if gap64 > EXACT_F64_RTOL:
         failures.append(f"float64 exact saliencies differ from the C++ "
                         f"replay by {gap64}")
+    # (g) the second run's bits: training, scoring, merge rows at every tau
+    m0 = arrays["merge_ranks"][0]
+    probs2 = e2e.score_edges(vol, arrays["w"], dev)
+    okeys2 = md.order_to_keys(m0["rows2"], len(m0["rows2"]), vol.rag)
+    okeys, ex = arrays["okeys"], arrays["exact"]
+    rerun = {
+        "train": all(r["rerun_identical"] for r in arrays["train_ranks"]),
+        "probs": bool(np.array_equal(probs2, arrays["probs"])),
+        "exact": bool(np.array_equal(m0["exact2"], ex, equal_nan=True)),
+        "cut_rows": {tau: bool(np.array_equal(
+            okeys[md.threshold_cut(okeys, ex, tau)],
+            okeys2[md.threshold_cut(okeys2, m0["exact2"], tau)]))
+            for tau in e2e.TAUS}}
+    if not (rerun["train"] and rerun["probs"] and rerun["exact"]
+            and all(rerun["cut_rows"].values())):
+        failures.append(f"two runs of config #5 differ: {rerun}")
     # (d) is snemi_e2e's own raise; its gaps are printed
     chk = res["host_check"]
     if max(chk["vi_gap"], chk["rand_error_gap"]) > e2e.HOST_CHECK_TOL:
@@ -2650,7 +2870,8 @@ def phase_slice_snemi(dev, z):
           "cuts": res["cuts"], "merges": res["merges"],
           "merge_stats": res["merge_stats"],
           "rows_equal_fused_f64": same_rows, "fused_f64_s": fused_s,
-          "repeat_identical": repeat, "f64_exact_rel_gap_vs_replay": gap64,
+          "repeat_identical": repeat, "rerun_identical": rerun,
+          "f64_exact_rel_gap_vs_replay": gap64,
           "pair_counts_equal_host": True, "host_check": chk,
           "peak_rss_gb": res["peak_rss_gb"],
           "card_peak_gb": res["card_peak_gb"], "launches": paths})
@@ -2686,34 +2907,36 @@ def phase_slice_snemi(dev, z):
     return paths, b2
 
 
-# BASELINE config #2 (BASELINE.json:8; tools/run_3d_hmt.py:52-96): a
-# synthetic EM volume of VOL_Z x 512 x 512 voxels and 400 cells, seed 17;
-# its forest trained by hmt_train (VOL_TREES trees, pre-merge 50, watershed
-# 0.04) on an independent (Z // 4) x 256 x 256 subvolume, seed 31, with the
-# cells in proportion.  A cut depth keeps the cell density (n_cells in
-# proportion to Z) and the 512^2 sections.
+# BASELINE config #2 (BASELINE.json:8; tools/run_3d_hmt.py:52-96), as
+# glia_tpu_torch.examples.run_3d_hmt runs it: a synthetic EM volume of
+# VOL_Z x 512 x 512 voxels and 400 cells, seed 17; its forest trained by
+# hmt_train (80 trees, pre-merge 50, watershed 0.04) on an independent
+# subvolume (run_3d_hmt.train_config), seed 31.  A cut depth keeps the
+# cell density (n_cells in proportion to Z) and the 512^2 sections.
 VOL_Z = 100
 # the depth the script runs at: at 100 sections slice_3d took 341 s of
 # the script's budget of about 240 s, the host's pre-merge 94-102 s of
 # each of its two segmentations; at 64 sections the whole script took
 # 776 s on one host and 1048 s of its 1200 s limit on a slower one
-# (every host stage 1.3-1.9x), slice_3d 237 / 346 s of it (NVIDIA H100
-# 80GB HBM3, 700 W; PERF.md section 4)
-VOL_Z_RUN = 52
+# (every host stage 1.3-1.9x), slice_3d 237 / 346 s of it; at 52, with
+# slice_tools added, 1155 s on a slow host, slice_3d 208 s of it
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 4)
+VOL_Z_RUN = 36
 VOL_SIDE = 512
 VOL_CELLS = 400
-VOL_TREES = 80
-VOL_PRE_MERGE = 50
-VOL_WATERSHED = 0.04
 
 
-def volume_config(z):
-    """(n_cells, training depth, side, cells) at depth ``z``, as
-    tools/run_3d_hmt.py computes them."""
-    n_cells = VOL_CELLS * z // VOL_Z
-    tz, tside = max(z // 4, 8), max(VOL_SIDE // 2, 64)
-    tcells = max(n_cells * (tz * tside * tside) // (z * VOL_SIDE ** 2), 8)
-    return n_cells, tz, tside, tcells
+def segment_line(launches, wall, info, st):
+    """A segmentation's line (wall, launches, stage seconds, merges,
+    picks, the merge's stats), its order first checked to be a merge
+    forest."""
+    check_order(info["order"], info["probs"], len(np.unique(info["seg0"])),
+                int(info["seg0"].max()))
+    return {"wall_s": wall, "launches": launches,
+            "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
+            "merges": int(len(info["order"])), "n_picks": info["n_picks"],
+            **{k: st[k] for k in ("n_supersteps", "buckets", "fallback",
+                                  "plan_replayed") if k in st}}
 
 
 def counted_run(paths, name, fn):
@@ -2738,10 +2961,11 @@ def require_launches(paths, name, kernels):
 def phase_slice_3d(dev, z, seed):
     """BASELINE config #2, 3D HMT on the card (tools/run_3d_hmt.py's flow):
 
-    - the volume and the training subvolume (volume_config); the forest
-      of hmt_train on the subvolume, at the volume's BC width;
-    - pipeline3d.hmt3d_segment (engine="host": the serial C++ merge
-      order) with its defaults: the forest walked on the card;
+    - glia_tpu_torch.examples.run_3d_hmt at depth ``z``: the volume and
+      the training subvolume; the forest of hmt_train on the subvolume,
+      at the volume's BC width; pipeline3d.hmt3d_segment (engine="host":
+      the serial C++ merge order) with its defaults: the forest walked on
+      the card; the example's result line;
     - hmt_segment(engine="device", backend="device") on the whole volume:
       the multi-phase merge on the 3D supervoxel RAG (no fallback, or the
       script fails), B1 on the volume's batch against the plain walk (0
@@ -2762,65 +2986,49 @@ def phase_slice_3d(dev, z, seed):
     the later phases use)."""
     import glia_tpu_torch.graph.merge_device as md
     import glia_tpu_torch.pipeline as tp
-    from glia_tpu_torch.data.synthetic import synthetic_em_stack
+    from glia_tpu_torch.examples import run_3d_hmt as r3d
     from glia_tpu_torch.features.config import FeatureConfig
     from glia_tpu_torch.features.hierarchical import TreeFeatures
     from glia_tpu_torch.features.labels import bc_labels
     from glia_tpu_torch.graph.rag import build_rag
     from glia_tpu_torch.models.forest import train_forest
-    from glia_tpu_torch.pipeline3d import hmt3d_segment
 
     t_phase = time.perf_counter()
     paths, b1, b2, failures = {}, [], [], []
-    n_cells, tz, tside, tcells = volume_config(z)
-    seg_kw = dict(watershed_level=VOL_WATERSHED,
-                  pre_merge_size=VOL_PRE_MERGE)
-
-    t = time.perf_counter()
-    stack = synthetic_em_stack((z, VOL_SIDE, VOL_SIDE), n_cells=n_cells,
-                               seed=17)
-    pb, truth = stack["pb3d"], stack["truth3d"]
-    intensity = np.stack([s["intensity"] for s in stack["slices"]])
-    tr = synthetic_em_stack((tz, tside, tside), n_cells=tcells, seed=31)
-    tr_vol = {"pb": tr["pb3d"], "truth": tr["truth3d"],
-              "intensity": np.stack([s["intensity"] for s in tr["slices"]])}
-    generate_s = time.perf_counter() - t
-    st_train = {}
-    t = time.perf_counter()
-    model = tp.hmt_train([tr_vol], n_trees=VOL_TREES, stats=st_train,
-                         **seg_kw)
-    train_s = time.perf_counter() - t
-    emit({"phase": "slice_3d", "part": "data",
-          "volume": [z, VOL_SIDE, VOL_SIDE], "voxels": int(pb.size),
-          "voxels_over_2_24": int(pb.size) > 2 ** 24, "n_cells": n_cells,
-          "train_volume": [tz, tside, tside], "train_cells": tcells,
-          "generate_s": generate_s, "train_s": train_s,
-          "train_stages_s": st_train, "D": model.forest.n_features,
-          "forest": forest_shape(model.forest)})
+    n_cells = VOL_CELLS * z // VOL_Z
+    seg_kw = dict(watershed_level=r3d.WATERSHED_LEVEL,
+                  pre_merge_size=r3d.PRE_MERGE)
 
     def segment(name, fn):
         st = {}
         t = time.perf_counter()
         (out, info), calls = counted_run(paths, name, lambda: fn(st))
         wall = time.perf_counter() - t
-        check_order(info["order"], info["probs"],
-                    len(np.unique(info["seg0"])), int(info["seg0"].max()))
-        return out, info, calls, {
-            "wall_s": wall, "launches": paths[name],
-            "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
-            "merges": int(len(info["order"])), "n_picks": info["n_picks"],
-            **{k: st[k] for k in ("n_supersteps", "buckets", "fallback",
-                                  "plan_replayed") if k in st}}
+        return out, info, calls, segment_line(paths[name], wall, info, st)
 
-    lines = {}
-    seg_h, info_h, _, lines["host"] = segment(
-        "3d_host", lambda st: hmt3d_segment(
-            pb, intensity, model, device=dev, stats=st, **seg_kw))
-    seg0 = info_h["seg0"]
-    t = time.perf_counter()
-    base = tp.evaluate(seg0, truth)
-    lines["host"]["eval"] = tp.evaluate(seg_h, truth)
-    evaluate_s = time.perf_counter() - t
+    # the volume, its forest and the host engine's segmentation: the
+    # example run_3d_hmt at depth z
+    arr, lines = {}, {}
+    tool, _ = counted_run(paths, "3d_host", lambda: r3d.run_3d_hmt(
+        z, VOL_SIDE, n_cells, device=dev, arrays=arr))
+    vol, tr_vol, model = arr["volume"], arr["train"], arr["model"]
+    pb, intensity, truth = vol["pb"], vol["intensity"], vol["truth"]
+    info_h, seg0 = arr["aux"], arr["aux"]["seg0"]
+    lines["host"] = segment_line(paths["3d_host"],
+                                 tool["stages_s"]["segment"], info_h,
+                                 arr["segment_stats"])
+    lines["host"]["eval"] = arr["eval_hmt"]
+    base = arr["eval_watershed"]
+    evaluate_s = tool["stages_s"]["evaluate"]
+    tz, tside, tcells = r3d.train_config(z, VOL_SIDE, n_cells)
+    emit({"phase": "slice_3d", "part": "data",
+          "volume": [z, VOL_SIDE, VOL_SIDE], "voxels": tool["voxels"],
+          "voxels_over_2_24": tool["voxels"] > 2 ** 24, "n_cells": n_cells,
+          "train_volume": [tz, tside, tside], "train_cells": tcells,
+          "generate_s": tool["stages_s"]["generate"],
+          "train_s": tool["stages_s"]["train"],
+          "train_stages_s": arr["train_stats"], "D": model.forest.n_features,
+          "forest": forest_shape(model.forest), "run_3d_hmt": tool})
     seg_d, info_d, calls_d, lines["device"] = segment(
         "3d_device", lambda st: tp.hmt_segment(
             pb, intensity, model, engine="device", backend="device",
@@ -2885,14 +3093,14 @@ def phase_slice_3d(dev, z, seed):
     t = time.perf_counter()
     st_bc = {}
     seg_t, order_t, _ = tp._training_slice(
-        tr_vol, "median", VOL_WATERSHED, VOL_PRE_MERGE,
+        tr_vol, "median", r3d.WATERSHED_LEVEL, r3d.PRE_MERGE,
         tp.HmtModel(forest=None), st_bc)
     X_bc = TreeFeatures(build_rag(seg_t, contour_only=False), order_t,
                         FeatureConfig.standard(tr_vol["pb"],
                                                tr_vol["intensity"],
                                                n_bins=16)).bc_features()
     y_bc = bc_labels(seg_t, tr_vol["truth"], order_t, rule="f1")[0]
-    bc_forest = train_forest(X_bc, y_bc, n_trees=VOL_TREES, seed=0,
+    bc_forest = train_forest(X_bc, y_bc, n_trees=r3d.N_TREES, seed=0,
                              n_jobs=-1)
     bc_train_s = time.perf_counter() - t
     bc_sums, bc_outs = [], []
@@ -2942,7 +3150,8 @@ def phase_slice_3d(dev, z, seed):
           "phase_s": time.perf_counter() - t_phase})
     if failures:
         raise AssertionError(f"slice_3d: {failures}")
-    return paths, b1, b2, {"stack": stack, "train": tr, "model": model}
+    return paths, b1, b2, {"stack": vol["stack"], "train": tr_vol["stack"],
+                           "model": model}
 
 
 # the link forest's trees and the linking threshold of
@@ -3245,7 +3454,9 @@ def main(argv=None):
     paths.update(forest_paths)
     merge_paths, b2_merge, bench = phase_slice_merge(data, seg, rag, dev)
     paths.update(merge_paths)
-    b1_all = [b1, b1_device, b1_host, *b1_trained]
+    tools_paths, b1_tools = phase_slice_tools(dev, args.seed)
+    paths.update(tools_paths)
+    b1_all = [b1, b1_device, b1_host, *b1_trained, b1_tools]
     b2_shapes += b2_merge
     par_paths, b1_par, b2_par = phase_slice_parallel(bench, dev, args.seed)
     del bench

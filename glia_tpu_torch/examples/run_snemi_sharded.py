@@ -37,8 +37,10 @@ TIMEOUT_S = 3000.0
 
 
 def step_rank(mesh, plan, n_regions, block):
-    """One rank: a first halo train step (CUDA start, the kernel's first
-    load), then STEADY_STEPS steps, each timed to its end on the device."""
+    """One rank: its batch on the device (the block uploaded, its orders
+    of addition sorted once), a first halo train step (CUDA start, the
+    kernel's first load), then STEADY_STEPS steps, each timed to its end
+    on the device."""
     import torch
 
     from ..device import synchronize
@@ -46,7 +48,10 @@ def step_rank(mesh, plan, n_regions, block):
 
     if mesh.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
     batch = halo_train_batch(mesh, block)
+    synchronize(mesh.device)
+    batch_s = time.perf_counter() - t0
     init, step, (edge_w, D) = make_halo_train_step(
         mesh, plan, n_regions, n_images=2, k_pixels=K_PIXELS, n_bins=N_BINS)
     w, opt = init()
@@ -60,7 +65,7 @@ def step_rank(mesh, plan, n_regions, block):
         w, opt, loss = step(w, opt, batch)
         synchronize(mesh.device)
         steps_s.append(time.perf_counter() - t0)
-    return {"first_s": first_s, "steps_s": steps_s,
+    return {"batch_s": batch_s, "first_s": first_s, "steps_s": steps_s,
             "loss_first": first_loss, "loss_after": float(loss),
             "edge_w": edge_w, "D": D, "E_max": batch["E_max"],
             "card_peak_gb": card_peak_gb(mesh.device)}
@@ -115,6 +120,7 @@ def snemi_sharded(vol, shards=8, device=None, timeout_s=TIMEOUT_S) -> dict:
                       timeout_s=timeout_s)
     spawn_s = time.perf_counter() - t0
     r0 = res[0]
+    stages["rank_batch"] = r0["batch_s"]
     stages["compile_first_step"] = r0["first_s"]
     step_s = float(np.median(r0["steps_s"]))
     stages["steady_step"] = step_s

@@ -48,3 +48,23 @@ def segment_sum_auto(values: torch.Tensor, seg_ids: torch.Tensor,
     if values.device.type == "cpu":
         return segment_sum_torch(values, seg_ids, n_segments, sorted=sorted)
     raise ValueError(f"no segment sum for device {values.device}")
+
+
+def segment_order(seg_ids: torch.Tensor):
+    """A fixed order of addition for summing by ``seg_ids``: (the stable
+    argsort of the ids, the ids in that order).  Compute it once where
+    the ids stay fixed over many sums, then sum with
+    ``segment_sum_ordered``."""
+    ids, perm = torch.sort(seg_ids.long(), stable=True)
+    return perm, ids
+
+
+def segment_sum_ordered(values: torch.Tensor, order,
+                        n_segments: int) -> torch.Tensor:
+    """The segment sum of ``values`` by the ids of ``order``
+    (``segment_order``) through the sorted entry: on the card the same
+    bits on every launch.  A stable sort keeps each segment's rows in
+    index order, so these are also the bits of the CPU's ``index_add_``
+    over the unsorted ids."""
+    perm, ids = order
+    return segment_sum_auto(values[perm], ids, n_segments, sorted=True)

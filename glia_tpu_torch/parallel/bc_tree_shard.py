@@ -12,8 +12,8 @@ ragged-halo routing as parallel/halo.py:
     (level(n) <= l < level(parent)); every leaf / pair contribution is
     keyed by its alive ancestor through a host-computed lut;
   - each rank segment-reduces its leaves and directed pairs into
-    per-component partial rows (additive fields through
-    ``segment_sum_auto``, kernel B2 on the card; min / max fields by
+    per-component partial rows (additive fields summed in a fixed order,
+    kernel B2's sorted entry on the card; min / max fields by
     scatter-min / max), sends the partial rows of components another rank
     owns to their owner with one ragged ``all_to_all`` per combine kind,
     and owners combine them;
@@ -46,7 +46,8 @@ from ..features.device import DeviceFeatureSpec, bc_features_dev
 from ..features.hierarchical import group_stats
 from ..graph.rag import Rag
 from ..graph.tree import build_tree, pairs_lca
-from ..ops.segment_csr import segment_sum_auto
+from ..ops.segment_csr import segment_order, segment_sum_ordered
+from .halo import fold_order, owner_fold
 from .mesh import Mesh, to_device
 
 POS_INF = np.inf
@@ -473,10 +474,11 @@ _FILL = {"add": 0.0, "min": POS_INF, "max": NEG_INF}
 
 def _segment_partial(vals, comp, M, combine):
     """Per-component partial rows [M + 1, F] of a rank's rows; ids >= M
-    go to the discard row M."""
+    go to the discard row M.  Sums run in a fixed order (a stable sort of
+    the ids, then B2's sorted entry)."""
     comp = torch.clamp(comp, max=M)
     if combine == "add":
-        return segment_sum_auto(vals, comp, M + 1)
+        return segment_sum_ordered(vals, segment_order(comp), M + 1)
     out = vals.new_full((M + 1, vals.shape[1]), _FILL[combine])
     index = comp[:, None].expand(-1, vals.shape[1])
     return out.scatter_reduce_(0, index, vals,
@@ -489,20 +491,23 @@ def _masked_rows(table, ids, fill):
     return torch.where((ids >= 0)[:, None], table[ids.clamp(min=0)], fill)
 
 
-def _reduce(mesh: Mesh, partial, send_ids, recv_local, own_ids, combine):
+def _reduce(mesh: Mesh, partial, send_ids, recv_local, own_ids, fold,
+            combine):
     """Two-phase ragged reduction on one rank: partial [M + 1, F] -> the
-    owner rows [C_own, F] of the components this rank owns."""
+    owner rows [C_own, F] of the components this rank owns.  ``fold`` is
+    the ``halo.fold_order`` of ``recv_local``: the additive rows are
+    folded in that fixed order."""
     n, H = send_ids.shape
     F = partial.shape[1]
     fill = _FILL[combine]
     rows = _masked_rows(partial, send_ids.reshape(-1), fill)
     recv = mesh.all_to_all(rows.reshape(n, H, F)).reshape(n * H, F)
     own = _masked_rows(partial, own_ids, fill)
+    if combine == "add":
+        return owner_fold(own, recv, fold)
     rl = recv_local.reshape(-1)
     recv = torch.where((rl >= 0)[:, None], recv, fill)
     tgt = rl.clamp(min=0)
-    if combine == "add":
-        return own.index_add(0, tgt, recv)
     return own.scatter_reduce(0, tgt[:, None].expand(-1, F), recv,
                               "amin" if combine == "min" else "amax",
                               include_self=True)
@@ -607,17 +612,21 @@ def sharded_level_features(mesh: Mesh, plan: TreeShardPlan, l: int,
             out[c] = _reduce(mesh, part, *routes, c)
         return out
 
-    def routes(p):
-        return mine(p.send_ids), mine(p.recv_local), mine(p.own_ids)
+    def routes(send_ids, recv_local, own_ids):
+        """A routing plan's rows of this rank, and the order of its fold."""
+        rl, own = mine(recv_local), mine(own_ids)
+        return mine(send_ids), rl, own, fold_order(rl, own.shape[0])
 
     ta = node_tables(mine(pass_a.leaf_comp), mine(pass_a.dp_comp),
-                     routes(pass_a))
+                     routes(pass_a.send_ids, pass_a.recv_local,
+                            pass_a.own_ids))
     tb = node_tables(mine(pass_b.leaf_comp), mine(pass_b.dp_comp),
-                     routes(pass_b))
+                     routes(pass_b.send_ids, pass_b.recv_local,
+                            pass_b.own_ids))
 
     # pair tables (additive + min/max over dps at level-l LCAs)
     lca = mine(lca_comp)
-    p_routes = (mine(sends_p), mine(recvl_p), mine(own_p))
+    p_routes = routes(sends_p, recvl_p, own_p)
     pair_t = {}
     for c in ("add", "min", "max"):
         dv = dp[c] if c == "add" else torch.where((lca < M)[:, None], dp[c],

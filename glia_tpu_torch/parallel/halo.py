@@ -9,7 +9,8 @@ moves only cut-region rows between ranks:
     partials (kernel B2 on the card), then sends the partial rows of
     regions another rank owns to their owner with one ``all_to_all``
     (slabs padded to the plan's largest pair); owners add them into
-    their authoritative block.
+    their authoritative block.  Both sums run in a fixed order (B2's
+    sorted entry), so two runs give the same bits.
   phase 2 (halo fetch): owners send authoritative rows back to every
     rank that listed them as halo, with a second ``all_to_all``.
 
@@ -22,9 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.segment_csr import segment_order, segment_sum_ordered
 from .mesh import Mesh, to_device
 from .partition import Partition
-from .rag_shard import edge_pixel_stats, incident_sums
+from .rag_shard import edge_pixel_stats, incident_order, incident_sums
 
 
 class HaloPlan:
@@ -99,21 +101,41 @@ def _masked_rows(table: torch.Tensor, ids: torch.Tensor, fill=0.0):
     return torch.where((ids >= 0)[:, None], rows, fill)
 
 
-def halo_exchange(mesh: Mesh, partials, send_ids, recv_local, own_ids,
+def fold_order(recv_local: torch.Tensor, n_own: int):
+    """The fixed order of ``owner_fold`` for a rank's routing rows
+    ``recv_local`` [n, H] (-1 where a slot is empty): the
+    ``segment_order`` of the ids [0, 1, .., n_own - 1; recv_local].  The
+    stable sort puts each own row first and the rows received for it
+    after it in slot order, the order of a sequential ``index_add`` into
+    the own block.  Computed once per routing plan."""
+    ids = torch.cat([torch.arange(n_own, dtype=torch.int64,
+                                  device=recv_local.device),
+                     recv_local.reshape(-1).long()])
+    return segment_order(ids)
+
+
+def owner_fold(own: torch.Tensor, recv_rows: torch.Tensor, order):
+    """The own rows [n_own, F] plus the received partial rows [n * H, F],
+    each added into the own row its slot names (``order`` from
+    ``fold_order``; empty slots dropped): one sorted segment sum, so the
+    same bits on every run."""
+    return segment_sum_ordered(torch.cat([own, recv_rows]), order,
+                               own.shape[0])
+
+
+def halo_exchange(mesh: Mesh, partials, send_ids, fold, own_ids,
                   fetch_local):
     """Both phases on one rank: ``partials`` [R + 1, F] over the global
-    region universe; the rank's routing rows send_ids / recv_local /
-    fetch_local [n, H] and own_ids [R_own_max].  Returns (own block
-    [R_own_max, F], halo rows [n * H, F]: slot t*H + j from owner t)."""
+    region universe; the rank's routing rows send_ids / fetch_local
+    [n, H], own_ids [R_own_max] and the ``fold_order`` of its recv_local
+    rows.  Returns (own block [R_own_max, F], halo rows [n * H, F]: slot
+    t*H + j from owner t)."""
     n, H = send_ids.shape
     F = partials.shape[1]
     # phase 1: partial rows of foreign regions -> owners
     send_rows = _masked_rows(partials, send_ids.reshape(-1))
     recv_rows = mesh.all_to_all(send_rows.reshape(n, H, F)).reshape(n * H, F)
-    own = _masked_rows(partials, own_ids)
-    rl = recv_local.reshape(-1)
-    own = own.index_add(0, rl.clamp(min=0),
-                        torch.where((rl >= 0)[:, None], recv_rows, 0.0))
+    own = owner_fold(_masked_rows(partials, own_ids), recv_rows, fold)
     # phase 2: authoritative rows back to halo requesters
     out_rows = _masked_rows(own, fetch_local.reshape(-1))
     halo_rows = mesh.all_to_all(out_rows.reshape(n, H, F)).reshape(n * H, F)
@@ -121,9 +143,12 @@ def halo_exchange(mesh: Mesh, partials, send_ids, recv_local, own_ids,
 
 
 def _rank_routes(mesh: Mesh, send_ids, recv_local, own_ids, fetch_local):
-    """The rank's rows of the full routing tables."""
-    return (mesh.shard(send_ids)[0], mesh.shard(recv_local)[0],
-            mesh.shard(own_ids), mesh.shard(fetch_local)[0])
+    """The rank's rows of the full routing tables, its recv_local rows as
+    their ``fold_order``: the routing arguments of ``halo_exchange``."""
+    own = mesh.shard(own_ids)
+    return (mesh.shard(send_ids)[0],
+            fold_order(mesh.shard(recv_local)[0], own.shape[0]), own,
+            mesh.shard(fetch_local)[0])
 
 
 def make_halo_aggregate(mesh: Mesh, plan: HaloPlan, n_regions: int,
@@ -135,7 +160,8 @@ def make_halo_aggregate(mesh: Mesh, plan: HaloPlan, n_regions: int,
     from the full arrays ``shard_halo_inputs`` sets up."""
 
     def agg(u, v, ev, send_ids, recv_local, own_ids, halo_ids, fetch_local):
-        part = incident_sums(mesh.shard(ev), mesh.shard(u), mesh.shard(v),
+        part = incident_sums(mesh.shard(ev),
+                             incident_order(mesh.shard(u), mesh.shard(v)),
                              n_regions + 1)
         own, halo_rows = halo_exchange(
             mesh, part, *_rank_routes(mesh, send_ids, recv_local, own_ids,
@@ -185,7 +211,8 @@ def make_halo_edge_forward(mesh: Mesh, plan: HaloPlan, n_regions: int,
                                              mesh.shard(px_mask))
         msgs = torch.stack([torch.ones_like(mean), mean, mn, mx], dim=1)
         msgs = msgs * mesh.shard(edge_valid)[:, None]
-        part = incident_sums(msgs, mesh.shard(u), mesh.shard(v),
+        part = incident_sums(msgs,
+                             incident_order(mesh.shard(u), mesh.shard(v)),
                              n_regions + 1)
         own, halo_rows = halo_exchange(
             mesh, part, *_rank_routes(mesh, send_ids, recv_local, own_ids,

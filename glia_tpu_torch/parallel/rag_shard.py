@@ -4,8 +4,8 @@
 The pattern, on every rank:
 
   1. segment-reduce the rank's edges into a full-width region
-     accumulator [R_pad, F] (two segment sums, ``segment_sum_auto``:
-     kernel B2 on the card);
+     accumulator [R_pad, F] (two segment sums in a fixed order,
+     ``incident_sums``: kernel B2's sorted entry on the card);
   2. one ``psum_scatter`` over the mesh both sums the partial
      accumulators and leaves each rank its own region block;
   3. region results needed back at the edges return through an
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.segment_csr import segment_sum_auto
+from ..ops.segment_csr import segment_order, segment_sum_ordered
 from .mesh import Mesh, pad_to_multiple, to_device
 
 
@@ -52,12 +52,21 @@ def shard_edges(rag, pb_image, mesh: Mesh, max_pixels_per_edge=32):
     }
 
 
-def incident_sums(vals: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                  n_segments: int) -> torch.Tensor:
-    """Per-region sums of ``vals`` over incident edges, both endpoints:
-    two segment sums (kernel B2 on the card)."""
-    return (segment_sum_auto(vals, u, n_segments)
-            + segment_sum_auto(vals, v, n_segments))
+def incident_order(u: torch.Tensor, v: torch.Tensor):
+    """The fixed order of ``incident_sums`` over the endpoints ``u``,
+    ``v``: one ``segment_order`` each.  Computed once where the endpoints
+    stay fixed (a batch of the train step, a call of a forward)."""
+    return segment_order(u), segment_order(v)
+
+
+def incident_sums(vals: torch.Tensor, order, n_segments: int) -> torch.Tensor:
+    """Per-region sums of ``vals`` over incident edges, both endpoints
+    (``order`` from ``incident_order``): two segment sums through B2's
+    sorted entry on the card, each region's edges added in edge order, so
+    two runs give the same bits."""
+    ou, ov = order
+    return (segment_sum_ordered(vals, ou, n_segments)
+            + segment_sum_ordered(vals, ov, n_segments))
 
 
 def edge_pixel_stats(px: torch.Tensor, px_mask: torch.Tensor):
@@ -86,8 +95,8 @@ def make_region_aggregate(mesh: Mesh, n_regions_padded: int):
                          f"{n_dev} ranks")
 
     def agg(u, v, ev):
-        part = incident_sums(mesh.shard(ev), mesh.shard(u), mesh.shard(v),
-                             n_regions_padded)
+        order = incident_order(mesh.shard(u), mesh.shard(v))
+        part = incident_sums(mesh.shard(ev), order, n_regions_padded)
         return mesh.all_gather(mesh.psum_scatter(part))
 
     return agg
@@ -110,8 +119,8 @@ def make_edge_scoring_step(mesh: Mesh, n_regions_padded: int,
                                              mesh.shard(px_mask))
         # edge messages -> region context (degree, sum-mean, min, max)
         msgs = torch.stack([torch.ones_like(mean), mean, mn, mx], dim=1)
-        part = incident_sums(msgs * mesh.shard(edge_valid)[:, None], u, v,
-                             n_regions_padded)
+        part = incident_sums(msgs * mesh.shard(edge_valid)[:, None],
+                             incident_order(u, v), n_regions_padded)
         rfull = mesh.all_gather(mesh.psum_scatter(part))
         feats = torch.cat([torch.stack([mean, mn, mx, cnt], dim=1),
                            rfull[u][:, :2], rfull[v][:, :2]], dim=1)

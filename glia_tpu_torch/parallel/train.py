@@ -25,9 +25,9 @@ import numpy as np
 import torch
 
 from ..models.mlp import mlp2_forward, mlp2_init
-from .halo import group_edges, halo_exchange
+from .halo import fold_order, group_edges, halo_exchange
 from .mesh import Mesh, to_device
-from .rag_shard import edge_pixel_stats, incident_sums
+from .rag_shard import edge_pixel_stats, incident_order, incident_sums
 
 MLP_DIMS = (8, 16, 8)  # D (edge feature width), N1, N2
 P_CLIP = 1e-7
@@ -42,7 +42,8 @@ def edge_forward(w, u, v, px, px_mask, edge_valid, n_regions_padded,
     D, N1, N2 = MLP_DIMS
     mean, mn, mx, cnt = edge_pixel_stats(px, px_mask)
     msgs = torch.stack([torch.ones_like(mean), mean, mn, mx], dim=1)
-    part = incident_sums(msgs * edge_valid[:, None], u, v, n_regions_padded)
+    part = incident_sums(msgs * edge_valid[:, None], incident_order(u, v),
+                         n_regions_padded)
     rfull = part if mesh is None else mesh.all_gather(mesh.psum_scatter(part))
     feats = torch.cat([torch.stack([mean, mn, mx, cnt], dim=1),
                        rfull[u][:, :2], rfull[v][:, :2]],
@@ -170,7 +171,8 @@ def edge_forward_full(w, u, v, px, px_mask, edge_valid, n_regions,
     probabilities.  The sharded halo step computes exactly this with the
     table assembled by the halo exchange."""
     feats_e, msgs = _context_msgs(px, px_mask, edge_valid, n_bins)
-    table = _log_compress(incident_sums(msgs, u, v, n_regions))
+    table = _log_compress(incident_sums(msgs, incident_order(u, v),
+                                        n_regions))
     feats = torch.cat([feats_e, table[u], table[v]], dim=1).to(torch.float32)
     return mlp2_forward(w, feats, feats.shape[1], n1, n2)
 
@@ -235,13 +237,20 @@ def halo_rank_block(host: dict, rank: int) -> dict:
 
 def halo_train_batch(mesh: Mesh, block: dict) -> dict:
     """A rank's block (``halo_rank_block``) as tensors on the mesh's
-    device: the batch of ``make_halo_train_step``."""
+    device: the batch of ``make_halo_train_step``.  The endpoints and the
+    routing rows stay fixed over the steps, so the batch carries their
+    orders of addition, sorted once here: ``incident`` (``incident_order``
+    of u, v) and ``fold`` (``fold_order`` of the recv_local rows)."""
     out = {k: to_device(block[k], mesh, torch.int64)
-           for k in ("u", "v", "u_loc", "v_loc", "send_ids", "recv_local",
-                     "fetch_local", "own_ids")}
+           for k in ("u", "v", "u_loc", "v_loc", "send_ids", "fetch_local",
+                     "own_ids")}
     out.update({k: to_device(block[k], mesh, torch.float32)
                 for k in ("px", "px_mask", "labels", "edge_valid")})
     out["E_max"] = block["E_max"]
+    out["incident"] = incident_order(out["u"], out["v"])
+    out["fold"] = fold_order(to_device(block["recv_local"], mesh,
+                                       torch.int64),
+                             out["own_ids"].shape[0])
     return out
 
 
@@ -268,7 +277,8 @@ def make_halo_train_step(mesh: Mesh, plan, n_regions: int, n_images=2,
     step ~ the cut, not R.
 
     Forward on a rank: boundary-pixel stats -> edge features -> segment
-    sum partials (kernel B2) -> all_to_all reduce to owners -> all_to_all
+    sum partials (kernel B2's sorted entry, in the batch's fixed order) ->
+    all_to_all reduce to owners -> all_to_all
     halo fetch -> region context -> MLP2 -> cross entropy; the gradient
     all-reduced, clipped to global norm 1 and applied by Adam(lr) (optax's
     ``chain(clip_by_global_norm(1.0), adam(lr))``).
@@ -281,9 +291,9 @@ def make_halo_train_step(mesh: Mesh, plan, n_regions: int, n_images=2,
     def loss_and_grad(w, b):
         feats_e, msgs = _context_msgs(b["px"], b["px_mask"],
                                       b["edge_valid"], n_bins)
-        partials = incident_sums(msgs, b["u"], b["v"], n_regions + 1)
+        partials = incident_sums(msgs, b["incident"], n_regions + 1)
         own, halo_rows = halo_exchange(mesh, partials, b["send_ids"],
-                                       b["recv_local"], b["own_ids"],
+                                       b["fold"], b["own_ids"],
                                        b["fetch_local"])
         table = _log_compress(torch.cat([own, halo_rows], dim=0))
         feats = torch.cat([feats_e, table[b["u_loc"]], table[b["v_loc"]]],

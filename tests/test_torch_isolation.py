@@ -61,7 +61,13 @@ def test_scan_covers_the_package():
                 "infer/__init__.py", "metrics/__init__.py",
                 "models/__init__.py", "learn/__init__.py",
                 "ops/__init__.py", "__init__.py",
-                "examples/merge_steady_state.py"):
+                "examples/merge_steady_state.py", "examples/run_3d_hmt.py",
+                "examples/bench_merge_device.py",
+                "examples/bench_bc_device.py",
+                "examples/bench_forest_pallas.py",
+                "examples/bench_bc_midcut.py",
+                "examples/bench_median_drift.py",
+                "examples/bench_scaling.py", "examples/snemi_checks.py"):
         assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 

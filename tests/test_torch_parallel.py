@@ -16,6 +16,7 @@ update differently).
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -291,3 +292,76 @@ def test_gradient_is_world_times_the_world1_gradient(world4, world1):
     assert _rel(g4, WORLD * g1) < W_RTOL
     assert abs(world4[0]["halo_loss0"] - world1["halo_loss0"]) \
         < F32_RTOL * abs(world1["halo_loss0"])
+
+
+# ---------------------------------------------------------------------------
+# fixed-order sums: the bits of the index_add_ they replace on the CPU
+# ---------------------------------------------------------------------------
+
+def _spread_values(rng, n, f, dtype):
+    """Values over sixteen decades, so that any change in the order of
+    addition shows in the bits."""
+    v = rng.standard_normal((n, f)) * 10.0 ** rng.uniform(-8, 8, (n, f))
+    return torch.from_numpy(v.astype(dtype))
+
+
+def _ids(rng, kind, n, n_segments):
+    """Endpoint ids: a permutation (every id once, in random order) or
+    few segments with long runs of duplicates, both with rows of the
+    padding segment and past it."""
+    if kind == "permuted":
+        ids = rng.permutation(n) % (n_segments + 2)
+    else:
+        ids = rng.integers(0, 5, n)
+        ids[rng.random(n) < 0.1] = n_segments + 1     # dropped
+    ids[rng.random(n) < 0.05] = n_segments            # padding segment
+    return torch.from_numpy(ids.astype(np.int64))
+
+
+@pytest.mark.parametrize("kind", ["permuted", "duplicates"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_incident_sums_keep_the_cpu_bits(kind, dtype):
+    """``incident_sums`` through the stable sort and B2's sorted entry
+    gives, on the CPU, the bits of the unsorted ``index_add_`` sums it
+    replaced; on duplicate-heavy ids another order gives other bits."""
+    from glia_tpu_torch.ops.segment_csr import segment_sum_torch
+    from glia_tpu_torch.parallel.rag_shard import (incident_order,
+                                                   incident_sums)
+
+    rng = np.random.default_rng(5)
+    n, R = 600, 40
+    vals = _spread_values(rng, n, 6, dtype)
+    u, v = _ids(rng, kind, n, R), _ids(rng, kind, n, R)
+    got = incident_sums(vals, incident_order(u, v), R + 1)
+    want = (segment_sum_torch(vals, u, R + 1)
+            + segment_sum_torch(vals, v, R + 1))
+    assert torch.equal(got, want)
+    if kind == "duplicates":
+        flip = torch.arange(n - 1, -1, -1)
+        other = (segment_sum_torch(vals[flip], u[flip], R + 1)
+                 + segment_sum_torch(vals[flip], v[flip], R + 1))
+        assert not torch.equal(other, want)
+
+
+@pytest.mark.parametrize("kind", ["permuted", "duplicates"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_owner_fold_keeps_the_cpu_bits(kind, dtype):
+    """The owner fold of the halo exchange (one sorted segment sum over
+    [own rows; received rows]) gives the bits of the sequential
+    ``index_add`` of the received rows into the own block."""
+    rng = np.random.default_rng(6)
+    n, H, n_own, F = 4, 50, 30, 5
+    own = _spread_values(rng, n_own, F, dtype)
+    recv = _spread_values(rng, n * H, F, dtype)
+    if kind == "permuted":
+        rl = np.full(n * H, -1, np.int64)
+        rl[rng.permutation(n * H)[:n_own]] = np.arange(n_own)
+    else:
+        rl = rng.integers(0, 3, n * H)
+        rl[rng.random(n * H) < 0.2] = -1
+    rl = torch.from_numpy(rl).reshape(n, H)
+    got = halo.owner_fold(own, recv, halo.fold_order(rl, n_own))
+    flat = rl.reshape(-1)
+    want = own.index_add(0, flat.clamp(min=0),
+                         torch.where((flat >= 0)[:, None], recv, 0.0))
+    assert torch.equal(got, want)

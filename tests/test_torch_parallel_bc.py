@@ -148,3 +148,27 @@ def test_sharded_scores_are_the_plain_walk(glia, port):
         X = torch.from_numpy(feats).to(torch.float32)
         np.testing.assert_array_equal(
             scores, forest_votes_torch(X, tables)[:, li].numpy())
+
+
+@pytest.mark.parametrize("kind", ["permuted", "duplicates"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_segment_partial_keeps_the_cpu_bits(kind, dtype):
+    """The additive partial rows (a stable sort, then B2's sorted entry)
+    give the bits of the unsorted ``index_add_`` sum they replaced, ids
+    past the universe going to the discard row M."""
+    from glia_tpu_torch.ops.segment_csr import segment_sum_torch
+    from glia_tpu_torch.parallel.bc_tree_shard import _segment_partial
+
+    rng = np.random.default_rng(7)
+    n, M, F = 500, 60, 7
+    vals = rng.standard_normal((n, F)) * 10.0 ** rng.uniform(-8, 8, (n, F))
+    vals = torch.from_numpy(vals.astype(dtype))
+    if kind == "permuted":
+        comp = rng.permutation(n) % (M + 5)
+    else:
+        comp = rng.integers(0, 4, n)
+        comp[rng.random(n) < 0.2] = M + 3
+    comp = torch.from_numpy(comp.astype(np.int64))
+    got = _segment_partial(vals, comp, M, "add")
+    want = segment_sum_torch(vals, torch.clamp(comp, max=M), M + 1)
+    assert torch.equal(got, want)
