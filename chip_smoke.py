@@ -10,8 +10,9 @@ median) with seeded random forests in the reference's shape (255 trees,
 classes {-1, 1}, depth up to 24); then training, ``hmt_train(classifier=
 "mlp")`` and ``hmt_train_sshmt``, and segmenting with the trained models
 and on ``engine="host"``; then forests trained by the port's CART trainer
-on every engine; then bench.py's merge flow on its 4096 x 4096 section;
-then glia_tpu's tools/ scripts as the port's examples;
+on every engine; then bench.py's merge flow on its 4096 x 4096 section
+through glia_tpu_torch.bench, its script at 2048 x 2048 and the port's
+card suite; then glia_tpu's tools/ scripts as the port's examples;
 then the sharded path (BASELINE config #5) on torch.distributed ranks,
 and config #5 end to end on a cut SNEMI3D-scale volume;
 then the stack paths at BASELINE config #2's scale (3D HMT on a volume of
@@ -74,22 +75,37 @@ Phases, one JSON line each:
           batch (plan, ms, bound)
   slice_merge
           bench.py's merge flow at 4096^2 (its section: 243,749 regions
-          and 597,140 edges in glia_tpu): the host serial baseline, then
-          merge_batched_device_exact (mode="fused_ms", the multi-phase
-          engine, and the exact saliencies on the card) and the same flow
-          with mode="fused", each a first call and timed repeats (edges/s,
-          supersteps, buckets, kernels per superstep, busy share); the
-          fused_ms repeats replay the plan's CUDA graph (capture seconds,
-          pool bytes, B2 launches a replay, replay wall against the first
-          call's); both modes' threshold cuts at VI 0 to each other,
-          repeats identical, float64 exact saliencies within 1e-12 of the
-          C++ replay, no fallback, or the script fails; kernel B2 at the
-          engine's shapes; the sparse-pair metrics of the cut against the
-          host's.  On the data section: merge_serial_device (float64, card
+          and 597,140 edges in glia_tpu) through glia_tpu_torch.bench:
+          the host serial baseline, then merge_batched_device_exact
+          (mode="fused_ms", the multi-phase engine, and the exact
+          saliencies on the card) and the same flow with mode="fused",
+          each a first call and timed repeats (bench.py's JSON line,
+          edges/s, supersteps, buckets, kernels per superstep, busy share,
+          the three cut VIs); the fused_ms repeats replay the plan's CUDA
+          graph (capture seconds, pool bytes, B2 launches a replay, replay
+          wall against the first call's); GLIA_MERGE_DEBUG's per-phase
+          walls and alive counts on the memoized plan and
+          GLIA_MERGE_NOPACK64's graph beside the packed one; bench.py's
+          keys and value, both modes' threshold cuts at VI 0 to each
+          other, repeats identical, float64 exact saliencies within 1e-12
+          of the C++ replay, no fallback, the switches' rows and saliency
+          bits equal to the replay's and no graph of the other setting
+          replayed, or the script fails; kernel B2 at the engine's shapes;
+          the sparse-pair metrics of the cut against the host's.  On the
+          data section: merge_serial_device (float64, card
           = CPU bit for bit), mode="chunked" (card rows = CPU rows), the
           plan store across two processes (the second's first call
           replays the stored plan with the first's rows), the dense
           device metrics and the tree scan against the host's
+  bench_cli
+          python -m glia_tpu_torch.bench in a child process at
+          GLIA_BENCH_SIDE=2048: exit 0 and one stdout line with bench.py's
+          four keys, or the script fails; kernel B2 at that section's
+          shapes
+  card_suite
+          python -m pytest --noconftest tests/test_torch_on_card.py in a
+          child process (the counterpart of tests_tpu/test_real_tpu.py):
+          all ten tests pass, none skipped, or the script fails
   slice_tools
           glia_tpu's scripts under tools/ as the port's examples, at the
           tools' default arguments: bench_merge_device (fused_ms: no
@@ -194,14 +210,6 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_time_ms(fn, reps, warmup=2):
     """Median milliseconds of ``fn()`` over ``reps`` runs, each timed with
     CUDA events."""
@@ -257,6 +265,8 @@ def cuda_graph_time_ms(fn, inner=20, reps=20):
 
 def phase_env():
     import importlib.util
+
+    from glia_tpu_torch.device import nvidia_smi_line
 
     smi = nvidia_smi_line()
     emit({"phase": "env", "python": sys.version.split()[0],
@@ -1700,12 +1710,12 @@ def phase_slice_forest(data, seg, dev, inputs, seed):
     return paths, b1
 
 
-# bench.py's configuration (bench.py:44-68): a 4096^2 synthetic section
-# with (side // 14)^2 cells, seed 11, blur 1.2, noise 0.12, watershed at
-# 0.004 on the pb filtered by a Gaussian of sigma 1; its RAG had 243,749
-# regions and 597,140 edges in glia_tpu (BENCH_r05.json)
+# bench.py's configuration (bench.py:44-68), run by glia_tpu_torch.bench:
+# a 4096^2 synthetic section with (side // 14)^2 cells, seed 11, blur 1.2,
+# noise 0.12, watershed at 0.004 on the pb filtered by a Gaussian of sigma
+# 1; its RAG had 243,749 regions and 597,140 edges in glia_tpu
+# (BENCH_r05.json)
 MERGE_SIDE = 4096
-MERGE_CELL = 14
 MERGE_EXPECTED = {"R": 243749, "E": 597140}
 # timed calls of each merge engine after its first call, as bench.py
 MERGE_REPS = 5
@@ -1713,22 +1723,22 @@ MERGE_REPS = 5
 EXACT_F64_RTOL = 1e-12
 # device VI / Rand against the host's, float64 on both sides
 METRIC_RTOL = 1e-12
+# bench.py's JSON keys, in its order (bench.py:194-199)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
 
 
-def bench_section():
-    """bench.py's section: the synthetic slice, its watershed on the
-    filtered pb and its RAG (with region sizes)."""
-    import scipy.ndimage as ndi
-
-    from glia_tpu_torch.data.synthetic import synthetic_em_slice
-    from glia_tpu_torch.graph.rag import build_rag
-    from glia_tpu_torch.pipeline import watershed
-
-    n_cells = (MERGE_SIDE // MERGE_CELL) ** 2
-    data = synthetic_em_slice((MERGE_SIDE, MERGE_SIDE), n_cells=n_cells,
-                              seed=11, blur=1.2, noise=0.12)
-    seg = watershed(ndi.gaussian_filter(data["pb"], 1.0), 0.004)
-    return data, seg, build_rag(seg, contour_only=False), n_cells
+def bench_line_ok(line, E, merges, reps_s, host_merges, host_s):
+    """bench.py's line (bench.py:194-199) from numbers taken apart from
+    it: its four keys, ``value`` = (E + merges) / the median of the timed
+    calls' seconds rounded to 0.1, ``vs_baseline`` = that over the host
+    serial engine's (E + its merges) / seconds, rounded to 0.001."""
+    edges_s = (E + merges) / float(np.median(reps_s))
+    return (list(line) == BENCH_KEYS
+            and line["metric"] == "rag_merge_edges_per_s_per_chip"
+            and line["unit"] == "edges/s"
+            and line["value"] == round(edges_s, 1)
+            and line["vs_baseline"] == round(
+                edges_s / ((E + host_merges) / host_s), 3))
 
 
 def rel_gap(got, want):
@@ -1743,15 +1753,6 @@ def rel_gap(got, want):
         return 0.0
     return float(np.max(np.abs(got[ok] - want[ok])
                         / np.maximum(np.abs(want[ok]), 1e-300)))
-
-
-def same_run(a, b):
-    """Two (order, saliencies, n_merges) runs give the same rows and the
-    same saliency bits."""
-    n = a[2]
-    return (n == b[2] and torch.equal(a[0][:n], b[0][:n])
-            and np.array_equal(a[1][:n].cpu().numpy(),
-                               b[1][:n].cpu().numpy(), equal_nan=True))
 
 
 def host_interval_stats(tree, leaf_stats):
@@ -1781,25 +1782,123 @@ def host_interval_stats(tree, leaf_stats):
     return out
 
 
+def merge_switches(u_d, v_d, s_d, c_d, R, dev):
+    """The multi-phase merge's two switches on bench.py's section, its plan
+    memoized (merge_batched_device(mode="fused_ms") on the staged arrays):
+
+    - GLIA_MERGE_DEBUG: one call with a stats dict runs the plan phase by
+      phase; hard: the rows and saliency bits of the graph replay (a call
+      without the switch), no graph replayed, its phases' supersteps
+      summing to its n_supersteps, one alive count per transition and at
+      most one transition fewer than phases; printed: the per-phase and
+      per-transition walls and alive counts beside the replay's wall;
+    - GLIA_MERGE_NOPACK64: two calls (the first captures the unpacked
+      graph, the second replays it); hard: the packed call's rows and
+      saliency bits, the packed graph not replayed meanwhile, then
+      replayed again once the switch is off.
+
+    Returns the printed numbers and the failures."""
+    import os
+
+    import glia_tpu_torch.graph.merge_device as md
+    from glia_tpu_torch.bench import same_run
+
+    failures = []
+
+    def call(st=None):
+        t = time.perf_counter()
+        out = md.merge_batched_device(u_d, v_d, s_d, c_d, R, mode="fused_ms",
+                                      stats=st, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def replays(pack64):
+        return [g["replays"] for g in md.plan_graph_info()
+                if (g["E"], g["R"], g["sal_L"], g["pack64"])
+                == (len(u_d), R, None, pack64)]
+
+    st_ref = {}
+    call()
+    ref, replay_s = call(st_ref)
+    if not st_ref.get("plan_graph"):
+        failures.append(f"switches: the reference call replayed no graph: "
+                        f"{st_ref}")
+
+    os.environ["GLIA_MERGE_DEBUG"] = "1"
+    try:
+        st_dbg = {}
+        dbg, dbg_s = call(st_dbg)
+    finally:
+        del os.environ["GLIA_MERGE_DEBUG"]
+    lists = {k: st_dbg.get(k, []) for k in md.DEBUG_KEYS}
+    debug = {"wall_s": dbg_s, "replay_wall_s": replay_s,
+             "plan_graph": st_dbg.get("plan_graph"),
+             "n_supersteps": st_dbg.get("n_supersteps"),
+             "buckets": st_dbg.get("buckets"), **lists,
+             "same_as_replay": same_run(dbg, ref)}
+    if not debug["same_as_replay"] or st_dbg.get("plan_graph") is not False:
+        failures.append(f"GLIA_MERGE_DEBUG: rows or saliencies differ from "
+                        f"the replay's, or a graph replayed: {debug}")
+    if sum(lists["phase_steps"]) != st_dbg.get("n_supersteps") \
+            or len(lists["phase_s"]) != len(lists["phase_steps"]) \
+            or not len(lists["trans_s"]) == len(
+                lists["alive_at_transition"]) <= len(lists["phase_s"]) - 1:
+        failures.append(f"GLIA_MERGE_DEBUG: lists disagree: {debug}")
+
+    packed_before = replays(True)
+    os.environ["GLIA_MERGE_NOPACK64"] = "1"
+    try:
+        st_u1, st_u2 = {}, {}
+        unp1, capture_s = call(st_u1)
+        unp2, unpacked_s = call(st_u2)
+    finally:
+        del os.environ["GLIA_MERGE_NOPACK64"]
+    packed_during = replays(True)
+    unpacked = replays(False)
+    st_p = {}
+    _, packed_s = call(st_p)
+    packed_after = replays(True)
+    nopack = {"capture_call_s": capture_s, "replay_wall_s": unpacked_s,
+              "packed_replay_wall_s": packed_s,
+              "plan_graph": [st_u1.get("plan_graph"),
+                             st_u2.get("plan_graph")],
+              "same_as_packed": same_run(unp1, ref) and same_run(unp2, ref),
+              "packed_graph_replays": [packed_before, packed_during,
+                                       packed_after],
+              "unpacked_graph_replays": unpacked}
+    if not nopack["same_as_packed"] or not all(nopack["plan_graph"]) \
+            or packed_during != packed_before or unpacked != [2] \
+            or len(packed_after) != 1 \
+            or packed_after[0] != packed_before[0] + 1 \
+            or not st_p.get("plan_graph"):
+        failures.append(f"GLIA_MERGE_NOPACK64: rows differ, or a graph of "
+                        f"the other setting replayed: {nopack}")
+    return {"debug": debug, "nopack64": nopack, "failures": failures}
+
+
 def phase_slice_merge(data, seg, rag, dev):
     """bench.py's merge flow on the card at 4096^2, then the other device
     engines, the device metrics and the tree scan on the data section.
 
-    - the host serial mean greedy (native.greedy_merge_native), bench.py's
-      baseline; then merge_batched_device_exact (mode="fused_ms" and the
-      exact saliencies on the card, the main path: one first call, whose
-      launches are counted, then MERGE_REPS timed calls, which replay the
-      plan program's CUDA graph, the first of them capturing it, the
-      second's launches counted) and the same flow with mode="fused":
-      edges/s as bench.py defines it, (E + merges) / median wall,
-      supersteps, buckets, kernels per superstep and device busy share.
-      Hard: no fallback; both modes give the same number of merges and
-      threshold cuts (at k = R - n_cells, on their exact saliencies) at
-      VI 0.0 to each other; every call of an engine gives the first
-      call's rows and saliency bits; every fused_ms repeat replays the
-      one graph, whose tally of launches equals a counted replay's; in
-      float64 the exact saliencies are within EXACT_F64_RTOL of the C++
-      replay.
+    - bench.py's flow through glia_tpu_torch.bench (setup: the section and
+      the host serial mean greedy, bench.py's baseline; measure: the
+      first call, the staged inputs, MERGE_REPS timed calls, the host
+      replay, the three threshold cuts) with mode="fused_ms"
+      (merge_batched_device_exact, the main path: the timed calls replay
+      the plan program's CUDA graph, the first of them capturing it) and
+      with mode="fused", each flow's launches counted; then one more
+      fused_ms call whose launches are counted as a graph replay's:
+      bench.py's JSON, edges/s as bench.py defines it, (E + merges) /
+      median wall, supersteps, buckets, kernels per superstep and device
+      busy share.  Hard: bench.py's four keys and its value; no fallback;
+      both modes give the same number of merges and threshold cuts (at k
+      = R - n_cells, on their exact saliencies) at VI 0.0 to each other;
+      every call of an engine gives the first call's rows and saliency
+      bits; every fused_ms repeat replays the one graph, whose tally of
+      launches equals a counted replay's; in float64 the exact saliencies
+      are within EXACT_F64_RTOL of the C++ replay.
+    - the merge switches on the memoized 4096^2 plan (merge_switches,
+      hard).
     - B2 against its plain version at the multi-phase engine's shapes
       (each phase's dedupe, the LCA sums) and at the new engines' and
       metrics' shapes.
@@ -1816,7 +1915,9 @@ def phase_slice_merge(data, seg, rag, dev):
       within METRIC_RTOL, hard).
 
     Returns (launch counts per path, B2's per-shape results)."""
+    import glia_tpu_torch.bench as gbench
     import glia_tpu_torch.graph.merge_device as md
+    from glia_tpu_torch.bench import same_run
     import glia_tpu_torch.metrics.device as mdev
     from glia_tpu_torch.graph.merge import apply_merge_order
     from glia_tpu_torch.graph.tree import build_tree
@@ -1843,22 +1944,18 @@ def phase_slice_merge(data, seg, rag, dev):
             raise AssertionError(f"{name}: segment_sum never launched")
         return out
 
-    t = time.perf_counter()
-    big, seg_b, rag_b, n_cells = bench_section()
-    setup_s = time.perf_counter() - t
-    pb, truth = big["pb"], big["truth"]
+    sec = gbench.setup(MERGE_SIDE)
+    truth = sec.data["truth"]
+    seg_b, rag_b, n_cells = sec.seg, sec.rag, sec.n_cells
+    order_h, sal_h = sec.order_h, sec.sal_h
     R, E = rag_b.n_regions, rag_b.n_edges
     emit({"phase": "slice_merge", "part": "data", "side": MERGE_SIDE,
           "n_cells": n_cells, "R": R, "E": E,
           "glia_tpu_R_E": MERGE_EXPECTED,
           "same_as_glia_tpu": R == MERGE_EXPECTED["R"]
-          and E == MERGE_EXPECTED["E"], "setup_s": setup_s})
+          and E == MERGE_EXPECTED["E"], "setup_s": sec.setup_s})
 
-    # bench.py's baseline: the exact serial greedy merge on the host
-    t = time.perf_counter()
-    order_h, sal_h = greedy_merge_native(rag_b, pb, policy="mean")
-    host_s = time.perf_counter() - t
-    u, v, s, c = md.edge_mean_arrays(rag_b, pb)
+    u, v, s, c = sec.edges
     # inputs staged on the card once, as bench.py does
     u_d = torch.as_tensor(u, device=dev).long()
     v_d = torch.as_tensor(v, device=dev).long()
@@ -1866,72 +1963,64 @@ def phase_slice_merge(data, seg, rag, dev):
     c_d = torch.as_tensor(c, device=dev).float()
 
     def run_exact(mode, st):
-        """bench.py's run_exact: the merge and the exact saliencies on the
-        card, as one call for fused_ms, as two otherwise."""
-        if mode == "fused_ms":
-            return md.merge_batched_device_exact(u_d, v_d, s_d, c_d, R,
-                                                 stats=st, device=dev)
-        o, sb, n = md.merge_batched_device(u_d, v_d, s_d, c_d, R, mode=mode,
-                                           stats=st, device=dev)
-        ex = md.exact_saliency_device(u_d, v_d, s_d, c_d, o, R, device=dev)
-        return o, torch.where(torch.isnan(ex), sb, -ex), n
+        return gbench.run_exact(mode, u_d, v_d, s_d, c_d, R, dev, st)
 
-    engines, firsts = {}, {}
+    engines, firsts, lines = {}, {}, {}
     for mode in ("fused_ms", "fused"):
-        st = {}
-        t = time.perf_counter()
-        first = counted(f"merge_{mode}", lambda: run_exact(mode, st))
-        first_s = time.perf_counter() - t
-        reps, same, rep_stats = [], True, []
-        for i in range(MERGE_REPS):
-            rst = {}
-            t = time.perf_counter()
-            if mode == "fused_ms" and i == 1:
-                # one replay of the plan's graph, its launches counted as a
-                # path of their own
-                out = counted("merge_fused_ms_graph",
-                              lambda: run_exact(mode, rst))
-            else:
-                out = run_exact(mode, rst)
-            torch.cuda.synchronize()
-            reps.append(time.perf_counter() - t)
-            rep_stats.append(rst)
-            same = same and same_run(out, first)
-        if not same:
+        res = counted(f"merge_{mode}",
+                      lambda: gbench.measure(sec, mode, MERGE_REPS, dev))
+        first = res["outputs"]["first"]
+        st = res["first_stats"]
+        line = res["result"]
+        lines[mode] = line
+        if not bench_line_ok(line, E, res["outputs"]["last"][2],
+                             res["reps_s"], len(order_h), sec.host_s):
+            failures.append(f"{mode}: bench's line is not bench.py's: "
+                            f"{line}")
+        if not res["reps_identical"]:
             failures.append(f"{mode}: two card runs differ in rows or "
                             f"saliencies")
-        med = float(np.median(reps))
+        med = res["median_s"]
         prof = profile_run(lambda: run_exact(mode, {}))
         steps = st["n_supersteps"]
         prof.update(kernels_per_superstep=prof["kernels_launched"] / steps,
                     busy_share_of_median_wall=prof["device_busy_ms"]
                     / (med * 1e3))
         engines[mode] = {
-            "first_call_s": first_s, "reps_s": reps, "median_s": med,
-            "min_s": float(np.min(reps)), "merges": first[2],
-            "edges_per_s": (E + first[2]) / med,
-            "edges_per_s_min_rep": (E + first[2]) / float(np.min(reps)),
+            "bench_line": line, "first_call_s": res["first_s"],
+            "staging_s": res["staging_s"], "reps_s": res["reps_s"],
+            "median_s": med, "min_s": res["min_s"], "merges": res["merges"],
+            "edges_per_s": res["edges_per_s"],
+            "edges_per_s_min_rep": res["edges_per_s_min_rep"],
             "supersteps": steps, "buckets": st["buckets"],
-            "fallback": st.get("fallback"), "sal_L": st.get("sal_L"),
+            "fallback": res["fallback"], "sal_L": st.get("sal_L"),
             "stages_s": {k: x for k, x in st.items() if k.startswith("t_")},
             "launches": paths[f"merge_{mode}"],
-            "repeat_runs_identical": same, "profile": prof}
+            "repeat_runs_identical": res["reps_identical"],
+            "host_replay_max_abs_gap": res["replay_max_abs_gap"],
+            "vi": {k: res[k] for k in ("vi_serial", "vi_device",
+                                       "vi_stale")},
+            "profile": prof}
         if mode == "fused_ms":
-            # the timed calls after the first run the plan's CUDA graph
-            # (the first of them captures it): replays, capture seconds,
-            # pool bytes and launches a replay from the module
+            # the timed calls run the plan's CUDA graph (the first of them
+            # captures it); one more replay, its launches counted as a path
+            # of their own, against the graph's tally
+            rst = {}
+            counted("merge_fused_ms_graph", lambda: run_exact(mode, rst))
             graphs = [g for g in md.plan_graph_info()
-                      if (g["E"], g["R"], g["sal_L"]) == (E, R, st["sal_L"])]
+                      if (g["E"], g["R"], g["sal_L"], g["pack64"])
+                      == (E, R, st["sal_L"], True)]
             engines[mode]["graph"] = {
-                "plan_graph": [r.get("plan_graph") for r in rep_stats],
-                "capture_call_s": reps[0],
-                "replay_median_s": float(np.median(reps[1:])),
-                "first_call_s": first_s,
-                "first_over_replay": first_s / float(np.median(reps[1:])),
+                "plan_graph": res["plan_graph"] + [rst.get("plan_graph")],
+                "capture_call_s": res["capture_call_s"],
+                "replay_median_s": res["replay_median_s"],
+                "first_call_s": res["first_s"],
+                "first_over_replay": res["first_s"]
+                / res["replay_median_s"],
                 "graphs": graphs,
                 "launches_counted_one_replay":
                     paths["merge_fused_ms_graph"]}
-            if not all(r.get("plan_graph") for r in rep_stats) \
+            if not all(engines[mode]["graph"]["plan_graph"]) \
                     or len(graphs) != 1:
                 failures.append(f"fused_ms: the calls after the first did "
                                 f"not all replay one CUDA graph: "
@@ -1945,6 +2034,8 @@ def phase_slice_merge(data, seg, rag, dev):
         failures.append("fused_ms fell back to the single-phase engine")
     if engines["fused_ms"]["merges"] != engines["fused"]["merges"]:
         failures.append("fused_ms and fused merge counts differ")
+    switches = merge_switches(u_d, v_d, s_d, c_d, R, dev)
+    failures += switches.pop("failures")
 
     # threshold cuts at bench.py's k on each mode's exact saliencies
     k = R - n_cells
@@ -2015,9 +2106,10 @@ def phase_slice_merge(data, seg, rag, dev):
         failures.append(f"sparse-pair VI / Rand differ from the host's: "
                         f"{pairs}")
     emit({"phase": "slice_merge", "part": "merge", "R": R, "E": E,
-          "host_serial": {"merges": int(len(order_h)), "seconds": host_s,
-                          "edges_per_s": (E + len(order_h)) / host_s},
-          "engines": engines,
+          "bench_line": lines["fused_ms"],
+          "host_serial": {"merges": int(len(order_h)), "seconds": sec.host_s,
+                          "edges_per_s": sec.host_edges_s},
+          "engines": engines, "switches": switches,
           "fused_ms_vs_fused": {"rows_identical": rows_identical,
                                 "vi_between_cuts": vi_cross},
           "threshold_cut": {"k": k, "tau": float(tau),
@@ -2280,6 +2372,109 @@ def plan_store_check(rag, pb):
     return {"processes": children, "stored_plans": len(stored["plans"]),
             "stored_sal_L": len(stored["sal_L"]),
             "seconds": time.perf_counter() - t, "failures": failures}
+
+
+# the port's hardware suite (tests/test_torch_on_card.py, the counterpart
+# of tests_tpu/test_real_tpu.py's ten tests); --noconftest keeps out
+# tests/conftest.py, which imports JAX
+CARD_SUITE = ["tests/test_torch_on_card.py"]
+CARD_SUITE_TESTS = 10
+# the section of bench_cli's run of python -m glia_tpu_torch.bench
+# (bench.py's round-4 configuration, GLIA_BENCH_SIDE=2048); its RAG had
+# 61,001 regions and 149,084 edges in glia_tpu (BENCH_r04.json);
+# slice_merge runs the default 4096^2
+BENCH_CLI_SIDE = 2048
+BENCH_CLI_EXPECTED = {"R": 61001, "E": 149084}
+
+
+def repo_root() -> str:
+    import os
+
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def phase_card_suite():
+    """tests/test_torch_on_card.py under pytest in a child process: it must
+    exit 0 with all CARD_SUITE_TESTS tests passed and none skipped."""
+    import re
+
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", *CARD_SUITE], cwd=repo_root(),
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t
+    summary = ([ln for ln in out.stdout.splitlines() if ln.strip()]
+               or [""])[-1]
+    counts = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|failed|skipped|errors?|xfailed|xpassed|deselected)",
+        summary)}
+    emit({"phase": "card_suite", "command": "python -m pytest --noconftest "
+          "-p no:cacheprovider -q " + " ".join(CARD_SUITE),
+          "returncode": out.returncode, "seconds": seconds,
+          "summary": summary, "counts": counts})
+    if out.returncode != 0 or counts != {"passed": CARD_SUITE_TESTS}:
+        raise AssertionError(f"card_suite: {summary}\n"
+                             f"{out.stdout[-4000:]}\n{out.stderr[-2000:]}")
+
+
+def phase_bench_cli(dev):
+    """``python -m glia_tpu_torch.bench`` in a child process at
+    GLIA_BENCH_SIDE=BENCH_CLI_SIDE: it must exit 0 and print exactly one
+    stdout line, bench.py's line (bench_line_ok, from the numbers of its
+    ``counts`` line on stderr), on a RAG of glia_tpu's R and E
+    (BENCH_CLI_EXPECTED).  Path ``bench_2048`` is the child's launch
+    counts, from its first call to its last (the ``counts`` line).  Then
+    kernel B2 at that section's shapes (each phase's first dedupe and the
+    LCA keys of a discovery call of merge_batched_device_exact in this
+    process).  Returns (launch counts per path, B2's per-shape
+    results)."""
+    import os
+
+    import glia_tpu_torch.graph.merge_device as md
+    from glia_tpu_torch.bench import bench_section
+
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "glia_tpu_torch.bench"], cwd=repo_root(),
+        env={**os.environ, "GLIA_BENCH_SIDE": str(BENCH_CLI_SIDE)},
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    lines = out.stdout.splitlines()
+    line = json.loads(lines[0]) if len(lines) == 1 else None
+    counts = [json.loads(x[len("counts: "):])
+              for x in out.stderr.splitlines() if x.startswith("counts: ")]
+    counts = counts[0] if len(counts) == 1 else None
+    emit({"phase": "bench_cli", "side": BENCH_CLI_SIDE,
+          "returncode": out.returncode, "seconds": seconds,
+          "stdout": lines, "stderr": out.stderr.splitlines()[-15:]})
+    if out.returncode != 0 or line is None or counts is None:
+        raise AssertionError(f"bench_cli: rc {out.returncode}, stdout "
+                             f"{out.stdout[-2000:]!r}\n{out.stderr[-3000:]}")
+    R, E = counts["R"], counts["E"]
+    if {"R": R, "E": E} != BENCH_CLI_EXPECTED or not bench_line_ok(
+            line, E, counts["merges"], counts["reps_s"],
+            counts["host_merges"], counts["host_s"]):
+        raise AssertionError(f"bench_cli: R, E {R}, {E} (glia_tpu's "
+                             f"{BENCH_CLI_EXPECTED}), or the line is not "
+                             f"bench.py's: {line}, {counts}")
+    paths = {"bench_2048": counts["launches"]}
+    if paths["bench_2048"]["segment_sum"] == 0:
+        raise AssertionError("bench_cli: segment_sum never launched")
+    print(lines[0], flush=True)
+
+    data, _, rag = bench_section(BENCH_CLI_SIDE, (BENCH_CLI_SIDE // 14) ** 2)
+    u, v, s, c = md.edge_mean_arrays(rag, data["pb"])
+    st = {}
+    calls = capture_segment_sums(lambda: md.merge_batched_device_exact(
+        u, v, s, c, rag.n_regions, stats=st, device=dev))
+    shapes = []
+    for cap in st["buckets"]:
+        call = next(x for x in calls if x[0].ndim == 2
+                    and x[0].shape[0] == cap)
+        shapes.append(check_segment_sum(f"bench2048_dedupe_{cap}", *call))
+    shapes.append(check_segment_sum("bench2048_lca_keys", *calls[-2]))
+    return paths, shapes
 
 
 # the sharded path (glia_tpu_torch.parallel): the ranks of its world-4
@@ -3454,10 +3649,13 @@ def main(argv=None):
     paths.update(forest_paths)
     merge_paths, b2_merge, bench = phase_slice_merge(data, seg, rag, dev)
     paths.update(merge_paths)
+    cli_bench_paths, b2_bench_cli = phase_bench_cli(dev)
+    paths.update(cli_bench_paths)
+    phase_card_suite()
     tools_paths, b1_tools = phase_slice_tools(dev, args.seed)
     paths.update(tools_paths)
     b1_all = [b1, b1_device, b1_host, *b1_trained, b1_tools]
-    b2_shapes += b2_merge
+    b2_shapes += b2_merge + b2_bench_cli
     par_paths, b1_par, b2_par = phase_slice_parallel(bench, dev, args.seed)
     del bench
     paths.update(par_paths)

@@ -8,6 +8,7 @@ with x64 off) and float64 on the CPU (what glia_tpu's CPU tests run).
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -44,3 +45,15 @@ def synchronize(device: torch.device):
     host clock read next measures the work and not its enqueueing."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    first card's line): a limit below 700 W slows the card under load, so
+    every measurement carries it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

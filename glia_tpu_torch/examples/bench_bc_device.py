@@ -60,7 +60,7 @@ def bc_test_section(side: int, n_cells: int, seed: int = 9):
     """(section, watershed, RAG, feature config) of the tool's test
     section."""
     from ..features import FeatureConfig
-    from .bench_merge_device import bench_section
+    from ..bench import bench_section
 
     te, seg0, rag = bench_section(side, n_cells, seed=seed)
     return te, seg0, rag, FeatureConfig.standard(te["pb"], te["intensity"],

@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from .bench_merge_device import bench_section
+from ..bench import bench_section
 from .snemi import log
 
 POLICIES = ("median", "median_minsize")

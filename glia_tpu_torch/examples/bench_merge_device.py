@@ -30,24 +30,10 @@ import argparse
 import json
 import time
 
+from ..bench import bench_section
 from .snemi import log
 
 STAGED_CALLS = 3
-
-
-def bench_section(side: int, n_cells: int, seed: int = 11):
-    """(section dict, watershed, RAG) of the tool's section."""
-    import scipy.ndimage as ndi
-
-    from ..data.synthetic import synthetic_em_slice
-    from ..graph.rag import build_rag
-    from ..native import watershed_native
-
-    data = synthetic_em_slice((side, side), n_cells=n_cells, seed=seed,
-                              blur=1.2, noise=0.12)
-    seg = watershed_native(ndi.gaussian_filter(data["pb"], 1.0),
-                           level=0.004)
-    return data, seg, build_rag(seg, contour_only=False)
 
 
 def bench_merge_device(side: int = 1024, n_cells=None, mode: str = "fused",

@@ -64,7 +64,7 @@ def scaling_rank(mesh, plan, n_regions, block):
 
 def scaling_section(side: int, n_cells: int):
     """(section dict, RAG) of the tool's section."""
-    from .bench_merge_device import bench_section
+    from ..bench import bench_section
 
     data, _, rag = bench_section(side, n_cells, seed=9)
     return data, rag

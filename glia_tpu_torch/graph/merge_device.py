@@ -44,6 +44,16 @@ captured once per plan and shape into a CUDA graph and replayed
 processes in the store that ``utils.enable_persistent_cache`` names.
 Every segment sum goes through ``segment_sum_auto``: the hand-written CUDA
 kernel on the card, ``index_add_`` on the CPU.  Indices are int64 tensors.
+
+Two environment switches, read as glia_tpu reads them: GLIA_MERGE_DEBUG
+(any non-empty value) makes a multi-phase call that is given a ``stats``
+dict run its phases one by one, the device synchronized around each, and
+record per-phase walls and supersteps and per-transition walls and alive
+counts; GLIA_MERGE_NOPACK64 (set, and not 0 / false / no / off) runs the
+unpacked hop and sort forms of every fused superstep.  Neither changes a
+row or a saliency.  Both are diagnostic A/B switches, kept to match
+glia_tpu: the unpacked forms give the same bits about 30 % slower, and
+no mode of the port needs them.
 """
 
 from __future__ import annotations
@@ -63,6 +73,29 @@ from ..ops.segment_csr import segment_sum_auto
 from ..utils.cache import plan_store_dir
 
 BIG32 = 2 ** 31 - 1
+# what GLIA_MERGE_DEBUG records into a multi-phase call's stats dict
+DEBUG_KEYS = ("phase_s", "phase_steps", "trans_s", "alive_at_transition")
+
+
+def _env_flag(name):
+    """An environment toggle as a boolean ('', '0', 'false', 'no', 'off'
+    are off), glia_tpu's parse."""
+    return os.environ.get(name, "").strip().lower() not in (
+        "", "0", "false", "no", "off")
+
+
+def _pack64_enabled():
+    """Packed hop / sort keys (the default); GLIA_MERGE_NOPACK64 turns
+    them off, glia_tpu's A/B switch of its packed emission sort.  A
+    diagnostic switch, not a mode to run: the same bits, slower."""
+    return not _env_flag("GLIA_MERGE_NOPACK64")
+
+
+def _merge_debug(stats):
+    """GLIA_MERGE_DEBUG is on for a call given a ``stats`` dict.  Any
+    non-empty value is on, "0" included: glia_tpu reads the variable with
+    ``os.environ.get`` and not with ``_env_flag``."""
+    return stats is not None and bool(os.environ.get("GLIA_MERGE_DEBUG"))
 
 # ---------------------------------------------------------------------------
 # host packing of the RAG
@@ -473,12 +506,14 @@ class _FusedStatic:
 def _phase_static(stat_fn, E, R_loc, R_glob, dmax, with_vsz,
                   pack_hr=None):
     """The _FusedStatic of a phase; ``pack_hr=False`` forces the unpacked
-    hop and sort forms that ids beyond the packing bound take (tests)."""
+    hop and sort forms that ids beyond the packing bound take (tests), as
+    GLIA_MERGE_NOPACK64 does for every phase."""
     n_ids = R_loc + max(R_loc - 1, 1)
     fits = (int(dmax) + 2) * (n_ids + 1) < 2 ** 31
     return _FusedStatic(stat_fn=stat_fn, E=E, R=R_loc, dmax=int(dmax),
                         with_vsz=with_vsz,
-                        pack_hr=fits and pack_hr is not False,
+                        pack_hr=(fits and pack_hr is not False
+                                 and _pack64_enabled()),
                         R_glob=R_glob)
 
 
@@ -1023,7 +1058,8 @@ _PLAN_GRAPHS = {}
 def plan_graph_info():
     """One dict per captured plan program: edges, regions, phases, the
     last phase's supersteps, the saliency depth capacity (None for a
-    merge alone), capture seconds (with its warm-up run), the bytes of its
+    merge alone), dtype, whether it was captured packed (pack64), capture
+    seconds (with its warm-up run), the bytes of its
     memory pool, replays so far and each kernel's launches per replay."""
     return [dict(g.info, capture_s=g.capture_s, pool_bytes=g.pool_bytes,
                  replays=g.replays, launches_per_replay=dict(g.launches))
@@ -1061,15 +1097,18 @@ def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
     args = (tuple(entries), stat_fn, R, dmax, max_supersteps, dtype,
             with_vsz, K)
     if use_graph:
+        # the packing setting is part of the key, as it is of glia_tpu's
+        # program keys: a graph captured packed never replays unpacked
+        pack64 = _pack64_enabled()
         key = (args[0], stat_fn, R, dmax, max_supersteps,
                _dtype_name(dtype), with_vsz,
                tuple(tuple(t.shape) for t in _flat(inputs)), sal_L, K,
-               str(dev))
+               str(dev), pack64)
         g = _PLAN_GRAPHS.get(key)
         if g is None:
             info = {"E": entries[0][1], "R": R, "phases": len(entries),
                     "last_steps": K, "sal_L": sal_L,
-                    "dtype": _dtype_name(dtype)}
+                    "dtype": _dtype_name(dtype), "pack64": pack64}
             g = _PLAN_GRAPHS[key] = _PlanGraph(
                 lambda *xs: _plan_program(*args, *xs, sal_L=sal_L), inputs,
                 info)
@@ -1101,17 +1140,27 @@ def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
                     bool(ovf or any_alive), bool(conv), done, use_graph)
 
 
-def _discover_plan(stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
-                   inputs):
-    """The adaptive first run on a shape: 1-step phases while the phase
-    index is below 2, then 2-step phases, a phase being the last one once
-    its edge capacity is at most 4096 or it is the seventh; after each
-    non-last phase the alive count is read, and the next phase's edge
-    capacity is the quantized count, its vertex capacity the quantized
-    min(2 * alive, current).  A frontier that does not shrink makes the
-    next phase the last, at the same capacities and without a transition.
-    Returns a _PlanRun whose ``last_steps`` is the last phase's supersteps
-    and the realized plan."""
+def _run_phases(stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs,
+                entries=None, debug=None):
+    """The multi-phase merge run eagerly, phase by phase.
+
+    ``entries=None`` is the adaptive first run on a shape: 1-step phases
+    while the phase index is below 2, then 2-step phases, a phase being
+    the last one once its edge capacity is at most 4096 or it is the
+    seventh; after each non-last phase the alive count is read, and the
+    next phase's edge capacity is the quantized count, its vertex
+    capacity the quantized min(2 * alive, current).  A frontier that does
+    not shrink makes the next phase the last, at the same capacities and
+    without a transition.  Given ``entries`` (a plan), each phase runs its
+    planned supersteps at its capacities, the last to completion.
+
+    ``debug`` (a stats dict, GLIA_MERGE_DEBUG): the device is synchronized
+    around each phase and transition, and the lists of DEBUG_KEYS get
+    each phase's wall and supersteps and each transition's wall and the
+    alive count after it.
+
+    Returns (a _PlanRun whose ``last_steps`` is the last phase's
+    supersteps, the realized plan)."""
     u_d, v_d, payload_d, vstate = inputs
     E = u_d.shape[0]
     device = u_d.device
@@ -1127,39 +1176,63 @@ def _discover_plan(stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
     force_final = False
     pi = 0
     while True:
-        last = force_final or E_cur <= 4096 or pi >= 6
-        steps = None if last else (1 if pi < 2 else 2)
+        if entries is not None:
+            steps = entries[pi][0]
+            last = pi == len(entries) - 1
+        else:
+            last = force_final or E_cur <= 4096 or pi >= 6
+            steps = None if last else (1 if pi < 2 else 2)
         st = _phase_static(stat_fn, E_cur, R_cur, R, dmax, with_vsz)
         # fresh locals of this phase map with the base at its start; the
         # following transition composes the id table with the same value.
         # The first phase maps by the identity (a later one without a
         # transition before it maps by the table, as in glia_tpu)
         base_start = n_base
+        if debug is not None:
+            synchronize(device)
+            t = time.perf_counter()
         u_d, v_d, payload_d, vstate, alive, any_alive, n_loc, done = \
             _run_phase(st, u_d, v_d, payload_d, vstate, alive, any_alive,
                        order, sal,
-                       max_supersteps if steps is None else steps,
+                       max_supersteps if steps is None or last else steps,
                        n_m_base=base_start, g_of=None if pi == 0 else g_of)
+        if debug is not None:
+            synchronize(device)
+            debug.setdefault("phase_s", []).append(
+                round(time.perf_counter() - t, 4))
+            debug.setdefault("phase_steps", []).append(done)
         n_base = base_start + n_loc
         total_steps += done
-        realized.append((steps, E_cur, R_cur))
+        realized.append((None if last else steps, E_cur, R_cur))
         if last:
             break
-        n_alive = int(alive.sum())
-        if n_alive == 0:
-            realized[-1] = (None, E_cur, R_cur)
-            break
-        E2 = _cap_quantize(n_alive)
-        R2_cap = _cap_quantize(min(2 * n_alive, R_cur), lo=128, tile=128)
-        if E2 >= E_cur:
-            # frontier not shrinking: finish at the current capacity
-            force_final = True
-            pi += 1
-            continue
+        if entries is not None:
+            E2, R2_cap = entries[pi + 1][1], entries[pi + 1][2]
+        else:
+            n_alive = int(alive.sum())
+            if n_alive == 0:
+                realized[-1] = (None, E_cur, R_cur)
+                break
+            E2 = _cap_quantize(n_alive)
+            R2_cap = _cap_quantize(min(2 * n_alive, R_cur), lo=128,
+                                   tile=128)
+            if E2 >= E_cur:
+                # frontier not shrinking: finish at the current capacity
+                force_final = True
+                pi += 1
+                continue
+        if debug is not None:
+            t = time.perf_counter()
         u_d, v_d, payload_d, vstate, alive, g_of, ovf = _phase_transition(
             u_d, v_d, payload_d, vstate, alive, g_of, base_start, R_cur, R,
             E2, R2_cap)
         ovf_any = ovf_any | ovf
+        if debug is not None:
+            synchronize(device)
+            debug.setdefault("trans_s", []).append(
+                round(time.perf_counter() - t, 4))
+            debug.setdefault("alive_at_transition", []).append(
+                int(alive.sum()))
         E_cur, R_cur = E2, R2_cap
         pi += 1
     bad = bool(ovf_any | alive.any())
@@ -1177,7 +1250,7 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     compact id space.
 
     plan=None is adaptive: the first call on an (E, R, policy) shape
-    measures its plan (``_discover_plan``), reading the alive count after
+    measures its plan (``_run_phases``), reading the alive count after
     every phase but the last, and memoizes it per shape (with the pooled
     mean's plans, in the plan store when there is one).  Later calls run
     the memoized plan as one program (``_run_plan``; on a CUDA device a
@@ -1189,6 +1262,10 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     or absolute rows, run eagerly; its last entry runs to completion.  A
     capacity overflow or an unfinished frontier falls back to the
     single-phase engine and drops the memo entry (``stats["fallback"]``).
+
+    Under GLIA_MERGE_DEBUG with a ``stats`` dict, its DEBUG_KEYS lists
+    are cleared, and every plan, a memoized one too, runs phase by phase
+    (``_run_phases``), recording them; the rows are the same.
     """
     E = len(u)
     R = int(n_regions)
@@ -1197,6 +1274,12 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     inputs = _initial_state(u, v, payload, vsizes, R, dtype, device)
     struct = tuple((p.ndim, _dtype_name(p.dtype)) for p in inputs[2])
     memo_key = (E, R, stat_fn, struct, dmax, _dtype_name(dtype), with_vsz)
+    debug = _merge_debug(stats)
+    if debug:
+        # the lists would otherwise run on across the calls of a caller
+        # that passes one dict to each
+        for k in DEBUG_KEYS:
+            stats.pop(k, None)
     st = stats if stats is not None else {}
     discovered = False
     if plan is not None:
@@ -1206,19 +1289,21 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
             Ri = R if i == 0 else _tile_ceil(R * vf if vf <= 1.0 else vf,
                                              lo=128, tile=128)
             entries.append((steps, Ei, Ri))
-        run = _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype,
-                        with_vsz, inputs)
     else:
         _plan_store_load()
         entries = _PLAN_MEMO.get(memo_key)
         discovered = entries is None
-        if discovered:
-            run, entries = _discover_plan(stat_fn, R, dmax, max_supersteps,
-                                          dtype, with_vsz, inputs)
-        else:
-            run = _run_plan(entries, stat_fn, R, dmax, max_supersteps,
-                            dtype, with_vsz, inputs,
-                            last_steps=_PLAN_LAST_STEPS.get(memo_key))
+    if discovered or debug:
+        run, realized = _run_phases(stat_fn, R, dmax, max_supersteps, dtype,
+                                    with_vsz, inputs, entries=entries,
+                                    debug=stats if debug else None)
+        entries = entries or realized
+    else:
+        # an explicit plan runs eagerly (no known last-phase count)
+        run = _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype,
+                        with_vsz, inputs,
+                        last_steps=None if plan is not None
+                        else _PLAN_LAST_STEPS.get(memo_key))
     if run.bad:
         # capacity plan too tight for this RAG: the single-phase engine
         # (slower, never wrong); drop a stale memo so the next call
@@ -1467,11 +1552,12 @@ def exact_saliency_device(u, v, s, c, order, n_regions,
 
 
 def _merge_exact(u, v, s, c, n_regions, mode, dmax, max_supersteps, dt,
-                 st, dev):
+                 stats, dev):
     """Pooled-mean merge in ``mode`` and the exact merge-time saliencies
-    over its order buffer, both on ``dev``, one after the other; ``st``
-    receives the engine's counters and the wall seconds of the two stages
-    (t_merge_loop, t_exact_saliency)."""
+    over its order buffer, both on ``dev``, one after the other; a
+    ``stats`` dict receives the engine's counters and the wall seconds of
+    the two stages (t_merge_loop, t_exact_saliency)."""
+    st = stats if stats is not None else {}
     u_d = _as_index(u, dev)
     v_d = _as_index(v, dev)
     s_d = _as_float(s, dev, dt)
@@ -1479,7 +1565,7 @@ def _merge_exact(u, v, s, c, n_regions, mode, dmax, max_supersteps, dt,
     t0 = time.perf_counter()
     order, sal, n_m = merge_batched_device(
         u_d, v_d, s_d, c_d, n_regions, dmax=dmax,
-        max_supersteps=max_supersteps, dtype=dt, stats=st, mode=mode,
+        max_supersteps=max_supersteps, dtype=dt, stats=stats, mode=mode,
         device=dev)
     synchronize(dev)
     t1 = time.perf_counter()
@@ -1531,7 +1617,7 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
     L = _EXACT_SAL_L.get(sal_key)
     if plan is None or L is None:
         return _merge_exact(u, v, s, c, R, "fused_ms", dmax, max_supersteps,
-                            dt, st, dev)
+                            dt, stats, dev)
     t = time.perf_counter()
     sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)], dim=1)
     run = _run_plan(plan, _mean_stat_packed, R, dmax, max_supersteps, dt,
@@ -1546,7 +1632,7 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
         st["fallback"] = True
         return merge_batched_device_exact(
             u, v, s, c, n_regions, dmax=dmax, max_supersteps=max_supersteps,
-            dtype=dt, stats=st, device=dev)
+            dtype=dt, stats=stats, device=dev)
     _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
     st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in plan],
               fallback=False, plan_replayed=True, plan_graph=run.graph,
@@ -1794,7 +1880,9 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
     st = stats if stats is not None else {}
-    kw = dict(mode=mode, dmax=dmax, stats=st, device=dev, dtype=dt)
+    # the engines get the caller's dict (or None): GLIA_MERGE_DEBUG acts on
+    # a call given one
+    kw = dict(mode=mode, dmax=dmax, stats=stats, device=dev, dtype=dt)
 
     def timed_merge(fn, *args):
         t = time.perf_counter()
@@ -1816,10 +1904,11 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
             if mode == "fused_ms":
                 order, sal, n_m = merge_batched_device_exact(
                     u, v, s, c, rag.n_regions, dmax=dmax, dtype=dt,
-                    stats=st, device=dev)
+                    stats=stats, device=dev)
             else:
                 order, sal, n_m = _merge_exact(u, v, s, c, rag.n_regions,
-                                               mode, dmax, 256, dt, st, dev)
+                                               mode, dmax, 256, dt, stats,
+                                               dev)
             sal = sal[:n_m].double().cpu().numpy()
             return order_to_keys(order, n_m, rag), sal
         order, sal, n_m = timed_merge(merge_batched_device, u, v, s, c)

@@ -493,7 +493,7 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
     else:
         if engine == "device":
             order, sals = greedy_merge_device(rag, pb, policy=model.policy,
-                                              stats=st, device=dev,
+                                              stats=stats, device=dev,
                                               dtype=dtype)
         else:
             t = time.perf_counter()

@@ -1,9 +1,11 @@
-"""The port and its chip smoke script import nothing of JAX or glia_tpu,
-nor sklearn, optax or orbax, which the card machine does not have.
+"""The port, its chip smoke script and its card suite import nothing of
+JAX or glia_tpu, nor sklearn, optax or orbax, which the card machine does
+not have.
 
-An AST scan of every module of glia_tpu_torch/ and of chip_smoke.py for
-``import``/``from`` statements (at any depth, relative imports resolved)
-naming jax, jaxlib, glia_tpu, sklearn, optax or orbax.
+An AST scan of every module of glia_tpu_torch/, of chip_smoke.py and of
+tests/test_torch_on_card.py for ``import``/``from`` statements (at any
+depth, relative imports resolved) naming jax, jaxlib, glia_tpu, sklearn,
+optax or orbax.
 """
 
 import ast
@@ -14,7 +16,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "glia_tpu", "sklearn", "optax", "orbax"}
 FILES = sorted((ROOT / "glia_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_on_card.py"]
 
 
 def _imported_roots(path):
@@ -67,9 +69,11 @@ def test_scan_covers_the_package():
                 "examples/bench_forest_pallas.py",
                 "examples/bench_bc_midcut.py",
                 "examples/bench_median_drift.py",
-                "examples/bench_scaling.py", "examples/snemi_checks.py"):
+                "examples/bench_scaling.py", "examples/snemi_checks.py",
+                "bench.py"):
         assert f"glia_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
+    assert "tests/test_torch_on_card.py" in names
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -91,7 +95,8 @@ def test_importing_every_subpackage_builds_nothing():
         "import sys, importlib, torch\n"
         "subs = ['', '.features', '.graph', '.infer', '.metrics', "
         "'.models', '.learn', '.ops', '.utils', '.io', '.link3d', "
-        "'.parallel', '.data', '.cli', '.constants', '.ops.cuda']\n"
+        "'.parallel', '.data', '.cli', '.constants', '.ops.cuda', "
+        "'.bench']\n"
         "for s in subs:\n"
         "    importlib.import_module('glia_tpu_torch' + s)\n"
         "from glia_tpu_torch.ops import cuda\n"

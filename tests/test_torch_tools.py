@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from glia_tpu_torch.bench import bench_section
 from glia_tpu_torch.examples import (bench_bc_device, bench_bc_midcut,
                                      bench_forest_pallas, bench_median_drift,
                                      bench_merge_device, bench_scaling,
@@ -251,7 +252,7 @@ def test_bench_merge_device_main_prints_the_tools_keys(capsys, mode):
     assert out["mode"] == mode and out["device"] == "cpu"
     assert out["stats"].get("fallback", False) is False
     # the serial cut's VI as the tool computes it with glia_tpu
-    data, seg, rag = bench_merge_device.bench_section(128, 60)
+    data, seg, rag = bench_section(128, 60)
     order_h, _ = greedy_merge_native(rag, data["pb"], policy="mean")
     k = rag.n_regions - 60
     vi_h = eval_vi(apply_merge_order(seg, order_h, threshold_index=k),
