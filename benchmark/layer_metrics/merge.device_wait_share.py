@@ -1,0 +1,40 @@
+"""The share of the window the host spends blocked on the plan program:
+the program's `merge.scalar_wait` spans (the one read of the program's
+scalars, which waits for the graph or the eager program to finish),
+summed over the window's calls, over the window's seconds.  Read over
+the whole window, not only the profiler's stretch (the process stays
+slower after the stretch, so a traced run reads less than an untraced
+one)."""
+
+LAYER = "graph.merge_device (plan program)"
+UNIT = "share"
+SOURCE = "program_span"
+MOVES = "merge_edges_per_s"
+WORKLOADS = ["bench4096.replay"]
+
+
+def window_records(ctx):
+    """The program's `merge.exact` root span of each window call, in
+    order (`glia_tpu_torch.utils.profiling.records`); None where the
+    program keeps no such records or a call has not exactly one."""
+    from glia_tpu_torch.utils import profiling
+
+    recs = getattr(profiling, "records", None)
+    calls = ctx.window.calls
+    if recs is None or not calls:
+        return None
+    lo, hi = ctx.window.t_open, calls[-1].t1
+    mine = [r for r in list(recs)
+            if r.name == "merge.exact" and lo <= r.t0 <= hi]
+    if len(mine) != len(calls) or any(
+            not c.t0 <= r.t0 <= c.t1 for c, r in zip(calls, mine)):
+        return None
+    return mine
+
+
+def read(ctx):
+    recs = window_records(ctx)
+    if recs is None:
+        return None
+    return sum(r.spans.get("merge.scalar_wait", 0.0)
+               for r in recs) / ctx.window.seconds

@@ -70,6 +70,7 @@ import torch
 from ..device import (DeviceLike, default_dtype, resolve_device,
                       synchronize)
 from ..ops.segment_csr import segment_sum_auto
+from ..utils import profiling
 from ..utils.cache import plan_store_dir
 
 BIG32 = 2 ** 31 - 1
@@ -1019,31 +1020,34 @@ class _PlanGraph:
         self.inputs = (inputs[0].clone(), inputs[1].clone(),
                        tuple(p.clone() for p in inputs[2]),
                        tuple(z.clone() for z in inputs[3]))
-        t = time.perf_counter()
-        # one run on a side stream first, as torch.cuda.graphs asks of a
-        # capture (lazy initialization stays out of the graph)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            program(*self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with kcuda.graph_launch_tally() as tally:
-            with torch.cuda.graph(self.graph):
-                reserved = torch.cuda.memory_reserved(dev)
-                self.outputs = program(*self.inputs)
-                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        torch.cuda.synchronize(dev)
-        self.capture_s = time.perf_counter() - t
+        with profiling.span("merge.graph_capture") as sp:
+            # one run on a side stream first, as torch.cuda.graphs asks of
+            # a capture (lazy initialization stays out of the graph)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                program(*self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with kcuda.graph_launch_tally() as tally:
+                with torch.cuda.graph(self.graph):
+                    reserved = torch.cuda.memory_reserved(dev)
+                    self.outputs = program(*self.inputs)
+                    self.pool_bytes = (torch.cuda.memory_reserved(dev)
+                                       - reserved)
+            torch.cuda.synchronize(dev)
+        self.capture_s = sp.seconds
         self.launches = tally
         self.replays = 0
 
     def replay(self, inputs) -> _ProgramOut:
         from ..ops import cuda as kcuda
 
-        for dst, src in zip(_flat(self.inputs), _flat(inputs)):
-            dst.copy_(src)
-        self.graph.replay()
+        with profiling.span("merge.graph_inputs"):
+            for dst, src in zip(_flat(self.inputs), _flat(inputs)):
+                dst.copy_(src)
+        with profiling.span("merge.graph_launch"):
+            self.graph.replay()
         kcuda.count_graph_replay(self.launches)
         self.replays += 1
         return self.outputs
@@ -1060,9 +1064,11 @@ def plan_graph_info():
     last phase's supersteps, the saliency depth capacity (None for a
     merge alone), dtype, whether it was captured packed (pack64), capture
     seconds (with its warm-up run), the bytes of its
-    memory pool, replays so far and each kernel's launches per replay."""
+    memory pool, replays so far, and each kernel's launches and bytes
+    moved per replay."""
     return [dict(g.info, capture_s=g.capture_s, pool_bytes=g.pool_bytes,
-                 replays=g.replays, launches_per_replay=dict(g.launches))
+                 replays=g.replays, launches_per_replay=dict(g.launches),
+                 bytes_per_replay=dict(g.launches.nbytes))
             for g in _PLAN_GRAPHS.values()]
 
 
@@ -1076,6 +1082,7 @@ class _PlanRun(NamedTuple):
     conv: bool
     last_steps: int            # supersteps of the last phase
     graph: bool                # replayed from a CUDA graph
+    eager_steps: int           # supersteps of the eager continuation
 
 
 def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
@@ -1088,7 +1095,11 @@ def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
     live edge after those supersteps goes on eagerly from the program's
     state, up to ``max_supersteps`` (the same supersteps, so the same
     rows); the exact saliencies are then taken again on the finished
-    order."""
+    order.  Spans: merge.graph_inputs and merge.graph_launch (a replay),
+    merge.scalar_wait (the host waiting for the program's scalars),
+    merge.output_clone, merge.eager_tail (the continuation, whose
+    supersteps count as merge.eager_supersteps); plan.graph_capture
+    counts a new graph."""
     u0, v0, payload0, vstate0 = inputs
     dev = u0.device
     max_m = max(R - 1, 1)
@@ -1109,35 +1120,43 @@ def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
             info = {"E": entries[0][1], "R": R, "phases": len(entries),
                     "last_steps": K, "sal_L": sal_L,
                     "dtype": _dtype_name(dtype), "pack64": pack64}
+            profiling.count("plan.graph_capture")
             g = _PLAN_GRAPHS[key] = _PlanGraph(
                 lambda *xs: _plan_program(*args, *xs, sal_L=sal_L), inputs,
                 info)
         out = g.replay(inputs)
     else:
         out = _plan_program(*args, u0, v0, payload0, vstate0, sal_L=sal_L)
-    n_m, steps, ovf, any_alive, n_loc, done, conv = out.scalars.tolist()
+    with profiling.span("merge.scalar_wait"):
+        n_m, steps, ovf, any_alive, n_loc, done, conv = out.scalars.tolist()
     order, sal, sal_exact = out.order, out.sal, out.sal_exact
     if use_graph:
         # the graph's outputs belong to its next replay
-        order, sal = order.clone(), sal.clone()
-        sal_exact = None if sal_exact is None else sal_exact.clone()
+        with profiling.span("merge.output_clone"):
+            order, sal = order.clone(), sal.clone()
+            sal_exact = None if sal_exact is None else sal_exact.clone()
+    more = 0
     if any_alive and done < max_supersteps:
-        st = _phase_static(stat_fn, entries[-1][1], entries[-1][2], R, dmax,
-                           with_vsz)
-        base = n_m - n_loc
-        u, v, payload, vstate, alive = out.state
-        *_, any_alive, n_loc, more = _run_phase(
-            st, u, v, payload, vstate, alive, True, order, sal,
-            max_supersteps - done, n_m_base=base, g_of=out.g_of, n_loc=n_loc)
-        n_m, steps, done = base + n_loc, steps + more, done + more
-        if sal_L is not None:
-            (sc,) = payload0
-            ex, conv_t = _exact_saliency_pass(u0, v0, sc[:, 0], sc[:, 1],
-                                              order[:max_m], R, sal_L)
-            sal_exact = torch.where(torch.isnan(ex), sal[:max_m], -ex)
-            conv = bool(conv_t)
+        with profiling.span("merge.eager_tail"):
+            st = _phase_static(stat_fn, entries[-1][1], entries[-1][2], R,
+                               dmax, with_vsz)
+            base = n_m - n_loc
+            u, v, payload, vstate, alive = out.state
+            *_, any_alive, n_loc, more = _run_phase(
+                st, u, v, payload, vstate, alive, True, order, sal,
+                max_supersteps - done, n_m_base=base, g_of=out.g_of,
+                n_loc=n_loc)
+            n_m, steps, done = base + n_loc, steps + more, done + more
+            if sal_L is not None:
+                (sc,) = payload0
+                ex, conv_t = _exact_saliency_pass(u0, v0, sc[:, 0], sc[:, 1],
+                                                  order[:max_m], R, sal_L)
+                sal_exact = torch.where(torch.isnan(ex), sal[:max_m], -ex)
+                conv = bool(conv_t)
+        profiling.count("merge.eager_supersteps", more)
     return _PlanRun(order, sal, sal_exact, n_m, steps,
-                    bool(ovf or any_alive), bool(conv), done, use_graph)
+                    bool(ovf or any_alive), bool(conv), done, use_graph,
+                    more)
 
 
 def _run_phases(stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs,
@@ -1237,7 +1256,7 @@ def _run_phases(stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs,
         pi += 1
     bad = bool(ovf_any | alive.any())
     return _PlanRun(order, sal, None, n_base, total_steps, bad, True, done,
-                    False), realized
+                    False, 0), realized
 
 
 def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
@@ -1293,6 +1312,7 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
         _plan_store_load()
         entries = _PLAN_MEMO.get(memo_key)
         discovered = entries is None
+        profiling.count("plan.memo_miss" if discovered else "plan.memo_hit")
     if discovered or debug:
         run, realized = _run_phases(stat_fn, R, dmax, max_supersteps, dtype,
                                     with_vsz, inputs, entries=entries,
@@ -1311,6 +1331,7 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
         _PLAN_MEMO.pop(memo_key, None)
         _PLAN_LAST_STEPS.pop(memo_key, None)
         st["fallback"] = True
+        profiling.count("plan.fallback")
         return _fused_merge_core(u, v, payload, stat_fn, n_regions,
                                  max_supersteps, dtype, device, dmax=dmax,
                                  stats=st, vsizes=vsizes)
@@ -1321,7 +1342,7 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
         _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
     st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in entries],
               fallback=False, plan_replayed=plan is None and not discovered,
-              plan_graph=run.graph)
+              plan_graph=run.graph, eager_supersteps=run.eager_steps)
     return run.order[:max_m], run.sal[:max_m], run.n_m
 
 
@@ -1556,25 +1577,26 @@ def _merge_exact(u, v, s, c, n_regions, mode, dmax, max_supersteps, dt,
     """Pooled-mean merge in ``mode`` and the exact merge-time saliencies
     over its order buffer, both on ``dev``, one after the other; a
     ``stats`` dict receives the engine's counters and the wall seconds of
-    the two stages (t_merge_loop, t_exact_saliency)."""
+    the two stages (t_merge_loop, t_exact_saliency: the spans
+    merge.merge_loop and merge.exact_saliency)."""
     st = stats if stats is not None else {}
     u_d = _as_index(u, dev)
     v_d = _as_index(v, dev)
     s_d = _as_float(s, dev, dt)
     c_d = _as_float(c, dev, dt)
-    t0 = time.perf_counter()
-    order, sal, n_m = merge_batched_device(
-        u_d, v_d, s_d, c_d, n_regions, dmax=dmax,
-        max_supersteps=max_supersteps, dtype=dt, stats=stats, mode=mode,
-        device=dev)
-    synchronize(dev)
-    t1 = time.perf_counter()
-    ex = exact_saliency_device(u_d, v_d, s_d, c_d, order, n_regions,
-                               dtype=dt, device=dev, stats=st)
-    sal = torch.where(torch.isnan(ex), sal, -ex)
-    synchronize(dev)
-    st["t_merge_loop"] = t1 - t0
-    st["t_exact_saliency"] = time.perf_counter() - t1
+    with profiling.span("merge.merge_loop") as loop:
+        order, sal, n_m = merge_batched_device(
+            u_d, v_d, s_d, c_d, n_regions, dmax=dmax,
+            max_supersteps=max_supersteps, dtype=dt, stats=stats, mode=mode,
+            device=dev)
+        synchronize(dev)
+    with profiling.span("merge.exact_saliency") as exact:
+        ex = exact_saliency_device(u_d, v_d, s_d, c_d, order, n_regions,
+                                   dtype=dt, device=dev, stats=st)
+        sal = torch.where(torch.isnan(ex), sal, -ex)
+        synchronize(dev)
+    st["t_merge_loop"] = loop.seconds
+    st["t_exact_saliency"] = exact.seconds
     return order, sal, n_m
 
 
@@ -1599,12 +1621,30 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
     Returns (order [max_m, 3] dense triples, saliencies with exact
     merge-time pooled means where defined, n_merges).  ``stats``, when
     passed, receives the engine's counters (n_supersteps, buckets,
-    fallback, plan_replayed, plan_graph, sal_L) and wall seconds: on the
-    discovery path those of the two stages (t_merge_loop,
-    t_exact_saliency), on the one-program path the program's
-    (t_plan_program), where the two stages are not apart."""
+    fallback, plan_replayed, plan_graph, sal_L, eager_supersteps) and wall
+    seconds: on the discovery path those of the two stages (t_merge_loop,
+    t_exact_saliency), on the one-program path the call's
+    (t_plan_program), where the two stages are not apart.
+
+    Each call is the span merge.exact; on the one-program path it holds
+    merge.stage_inputs and ``_run_plan``'s spans, and counts
+    plan.memo_hit (plan.memo_miss and merge.discovery otherwise,
+    plan.fallback where the plan failed)."""
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
+    st = stats if stats is not None else {}
+    with profiling.span("merge.exact") as call:
+        out, one_program = _merge_exact_call(u, v, s, c, n_regions, dmax,
+                                             max_supersteps, dt, stats, dev)
+    if one_program:
+        st["t_plan_program"] = call.seconds
+    return out
+
+
+def _merge_exact_call(u, v, s, c, n_regions, dmax, max_supersteps, dt, stats,
+                      dev):
+    """merge_batched_device_exact's body: ((order, saliencies, n_merges),
+    whether the one program ran)."""
     st = stats if stats is not None else {}
     E = len(u)
     R = int(n_regions)
@@ -1616,13 +1656,18 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
     plan = _PLAN_MEMO.get(memo_key)
     L = _EXACT_SAL_L.get(sal_key)
     if plan is None or L is None:
-        return _merge_exact(u, v, s, c, R, "fused_ms", dmax, max_supersteps,
-                            dt, stats, dev)
-    t = time.perf_counter()
-    sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)], dim=1)
+        # the multi-phase engine counts its own plan lookup
+        with profiling.span("merge.discovery"):
+            return _merge_exact(u, v, s, c, R, "fused_ms", dmax,
+                                max_supersteps, dt, stats, dev), False
+    profiling.count("plan.memo_hit")
+    with profiling.span("merge.stage_inputs"):
+        sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)],
+                         dim=1)
+        inputs = (_as_index(u, dev), _as_index(v, dev), (sc,), ())
     run = _run_plan(plan, _mean_stat_packed, R, dmax, max_supersteps, dt,
-                    False, (_as_index(u, dev), _as_index(v, dev), (sc,), ()),
-                    last_steps=_PLAN_LAST_STEPS.get(memo_key), sal_L=L)
+                    False, inputs, last_steps=_PLAN_LAST_STEPS.get(memo_key),
+                    sal_L=L)
     if run.bad or not run.conv:
         # the plan overflowed or the depth capacity is too small for this
         # data: drop both memos and discover
@@ -1630,14 +1675,15 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
         _PLAN_LAST_STEPS.pop(memo_key, None)
         _EXACT_SAL_L.pop(sal_key, None)
         st["fallback"] = True
+        profiling.count("plan.fallback")
         return merge_batched_device_exact(
             u, v, s, c, n_regions, dmax=dmax, max_supersteps=max_supersteps,
-            dtype=dt, stats=stats, device=dev)
+            dtype=dt, stats=stats, device=dev), False
     _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
     st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in plan],
               fallback=False, plan_replayed=True, plan_graph=run.graph,
-              sal_L=L, t_plan_program=time.perf_counter() - t)
-    return run.order[:max_m], run.sal_exact, run.n_m
+              sal_L=L, eager_supersteps=run.eager_steps)
+    return (run.order[:max_m], run.sal_exact, run.n_m), True
 
 
 # ---------------------------------------------------------------------------
@@ -1885,17 +1931,17 @@ def greedy_merge_device(rag, pb_image, policy="mean", n_bins=32,
     kw = dict(mode=mode, dmax=dmax, stats=stats, device=dev, dtype=dt)
 
     def timed_merge(fn, *args):
-        t = time.perf_counter()
-        order, sal, n_m = fn(*args, rag.n_regions, **kw)
-        order = order[:n_m].cpu().numpy()
-        sal = sal[:n_m].double().cpu().numpy()
-        st["t_merge_loop"] = time.perf_counter() - t
+        with profiling.span("merge.merge_loop") as sp:
+            order, sal, n_m = fn(*args, rag.n_regions, **kw)
+            order = order[:n_m].cpu().numpy()
+            sal = sal[:n_m].double().cpu().numpy()
+        st["t_merge_loop"] = sp.seconds
         return order, sal, n_m
 
     def with_replay(sal, replay, *args, **kwargs):
-        t = time.perf_counter()
-        ex = replay(*args, **kwargs)
-        st["t_exact_saliency"] = time.perf_counter() - t
+        with profiling.span("merge.exact_saliency") as sp:
+            ex = replay(*args, **kwargs)
+        st["t_exact_saliency"] = sp.seconds
         return np.where(np.isnan(ex), sal, -ex)
 
     if policy == "mean":

@@ -197,6 +197,7 @@ class ForestTables:
     max_depth: int
     max_feature: int          # largest split feature index (-1: no splits)
     n_features: Optional[int]  # training width (None: not known)
+    n_inner: int              # real inner nodes (the kernel's byte count)
     # block geometries of the CUDA kernel, by (D, shared-memory limit)
     plans: dict = field(default_factory=dict)
 
@@ -218,7 +219,8 @@ class ForestTables:
             n_trees=model.n_trees, n_nodes=model.feature.shape[1],
             n_classes=int(model.n_classes), max_depth=int(model.max_depth),
             max_feature=int(model.feature.max(initial=-1)),
-            n_features=model.n_features)
+            n_features=model.n_features,
+            n_inner=int((model.feature >= 0).sum()))
 
 
 def check_features(tables: ForestTables, D: int):

@@ -9,9 +9,15 @@ module is imported, so the package imports on machines without CUDA.
 Every wrapper takes CUDA tensors only and raises on anything else; a
 failed build or launch raises too.  ``launches`` counts each kernel's
 launches (and only those), so a run can show which kernels its main path
-went through.  A call made while a CUDA graph captures launches nothing
-then: it counts into the tally of ``graph_launch_tally``, and the graph
-adds that tally to ``launches`` at each replay (``count_graph_replay``).
+went through; ``bytes_moved`` counts the bytes those launches must move
+at the least, from the shapes the wrapper holds (B2: the ids, the values
+and the output once each, an upper bound on the rows its ids keep; B1:
+the samples once, 16 bytes a real inner node, 8 a real leaf, the output
+once), and ``utils.profiling.count`` adds them to the open root span as
+``<kernel>.bytes``.  A call made while a CUDA graph captures launches
+nothing then: it counts into the tally of ``graph_launch_tally``, and the
+graph adds that tally, bytes included, at each replay
+(``count_graph_replay``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from ..._build import SharedLibBuild
 from ...models.forest import ForestTables, check_features
+from ...utils import profiling
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"forest_votes": os.path.join(_HERE, "forest_votes.cu"),
@@ -41,6 +48,7 @@ FOREST_THREADS = 1024
 FOREST_STATIC_SMEM = 64
 
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
+bytes_moved: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 # the tallies of the CUDA graphs being captured, innermost last
@@ -50,16 +58,27 @@ _graph_tallies: list = []
 def reset_launches():
     for name in launches:
         launches[name] = 0
+        bytes_moved[name] = 0
+
+
+class LaunchTally(dict):
+    """Launches per kernel of one replay of a captured graph, with the
+    bytes they move per kernel in ``nbytes``."""
+
+    def __init__(self):
+        super().__init__((name, 0) for name in SOURCES)
+        self.nbytes = {name: 0 for name in SOURCES}
 
 
 @contextlib.contextmanager
 def graph_launch_tally():
-    """Collect, per kernel, the launches that a CUDA graph captured in this
-    block will make at each replay.  A captured call runs nothing until
-    the graph replays, so it counts here and not in ``launches``; the
-    graph's owner passes the tally to ``count_graph_replay`` after every
-    replay.  A capture outside such a block counts nowhere."""
-    tally = {name: 0 for name in SOURCES}
+    """Collect, per kernel, the launches (and their bytes) that a CUDA
+    graph captured in this block will make at each replay.  A captured
+    call runs nothing until the graph replays, so it counts here and not
+    in ``launches``; the graph's owner passes the tally to
+    ``count_graph_replay`` after every replay.  A capture outside such a
+    block counts nowhere."""
+    tally = LaunchTally()
     _graph_tallies.append(tally)
     try:
         yield tally
@@ -67,18 +86,46 @@ def graph_launch_tally():
         _graph_tallies.pop()
 
 
-def count_graph_replay(tally: Dict[str, int]):
-    """Add the launches of one replay of a graph to ``launches``."""
+def count_graph_replay(tally: LaunchTally):
+    """Add the launches of one replay of a graph to ``launches``, and
+    their bytes to ``bytes_moved``."""
     for name, n in tally.items():
         launches[name] += n
+    for name, nbytes in tally.nbytes.items():
+        if nbytes:
+            _count_bytes(name, nbytes)
 
 
-def _count_launch(name: str):
+def _count_bytes(name: str, nbytes: int):
+    bytes_moved[name] += nbytes
+    profiling.count(name + ".bytes", nbytes)
+
+
+def _count_launch(name: str, nbytes: int = 0):
     if torch.cuda.is_current_stream_capturing():
         if _graph_tallies:
             _graph_tallies[-1][name] += 1
+            _graph_tallies[-1].nbytes[name] += nbytes
     else:
         launches[name] += 1
+        if nbytes:
+            _count_bytes(name, nbytes)
+
+
+def forest_bytes(tables: ForestTables, B: int, D: int) -> int:
+    """Bytes a B1 launch on ``B`` samples of ``D`` float32 features must
+    move: the samples once, 16 bytes a real inner node, 8 a real leaf,
+    the float32 output once."""
+    n_leaves = int(tables.n_real.sum()) - tables.n_inner
+    return (4 * B * D + 16 * tables.n_inner + 8 * n_leaves
+            + 4 * B * tables.n_classes)
+
+
+def segment_sum_bytes(B: int, F: int, S: int, itemsize: int) -> int:
+    """Bytes a B2 launch of ``B`` rows of ``F`` values into ``S`` segments
+    must move at most: the int64 ids, every value and the output once
+    (the rows its ids drop are not known without a device read)."""
+    return 8 * B + (B + S) * F * itemsize
 
 
 def _nvcc() -> str:
@@ -293,7 +340,7 @@ def forest_votes_cuda(X: torch.Tensor, tables: ForestTables,
     if rc != 0:
         raise RuntimeError(f"forest_votes kernel launch failed: CUDA error "
                            f"{rc} (plan {plan})")
-    _count_launch("forest_votes")
+    _count_launch("forest_votes", forest_bytes(tables, B, D))
     return out
 
 
@@ -340,7 +387,8 @@ def segment_sum_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{rc}")
-    _count_launch("segment_sum")
+    _count_launch("segment_sum",
+                  segment_sum_bytes(B, F, S, values.element_size()))
     return out
 
 

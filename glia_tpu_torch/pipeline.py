@@ -25,7 +25,7 @@ final segmentation -> eval (VI / adapted Rand):
 
 from __future__ import annotations
 
-import time
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -55,6 +55,7 @@ from .models.train_ensemble import (bc_area_feature_indices, forest_ensemble,
                                     train_forest_ensemble,
                                     train_mlp_supervised)
 from .native import greedy_merge_native, pre_merge_native, watershed_native
+from .utils import profiling
 
 KINDS = ("rf", "rf_ensemble", "mlp", "logsig")
 FEATURE_SETS = ("full", "simple")
@@ -247,31 +248,33 @@ def _features_for(seg, pb, intensity, model_cfg, order, sals):
     return tf.bc_features()
 
 
-def _add_time(st, key, t0):
-    st[key] = st.get(key, 0.0) + time.perf_counter() - t0
+@contextlib.contextmanager
+def _stage(st, key, name, add=False):
+    """The block as span ``name``; its seconds go to ``st[key]`` (added to
+    what is there with ``add``)."""
+    with profiling.span(name) as sp:
+        yield
+    st[key] = (st.get(key, 0.0) if add else 0.0) + sp.seconds
 
 
 def _training_slice(s, policy, watershed_level, pre_merge_size, cfg0, st):
     """One training slice's host stages: watershed -> pre_merge -> RAG ->
     serial merge order -> features.  Returns (seg, order, feats)."""
-    t = time.perf_counter()
-    seg = watershed(s["pb"], watershed_level)
-    if pre_merge_size:
-        seg = pre_merge(seg, s["pb"], (pre_merge_size,))
-    rag = build_rag(seg, contour_only=False)
-    order, sals = greedy_merge_native(rag, s["pb"], policy=policy)
-    _add_time(st, "t_segment", t)
-    t = time.perf_counter()
-    feats = _features_for(seg, s["pb"], s.get("intensity"), cfg0, order,
-                          sals)
-    _add_time(st, "t_features", t)
+    with _stage(st, "t_segment", "train.segment", add=True):
+        seg = watershed(s["pb"], watershed_level)
+        if pre_merge_size:
+            seg = pre_merge(seg, s["pb"], (pre_merge_size,))
+        rag = build_rag(seg, contour_only=False)
+        order, sals = greedy_merge_native(rag, s["pb"], policy=policy)
+    with _stage(st, "t_features", "train.features", add=True):
+        feats = _features_for(seg, s["pb"], s.get("intensity"), cfg0, order,
+                              sals)
     return seg, order, feats
 
 
 def _labels(seg, truth, order, rule, st):
-    t = time.perf_counter()
-    labels, _, _ = bc_labels(seg, truth, order, rule=rule)
-    _add_time(st, "t_labels", t)
+    with _stage(st, "t_labels", "train.labels", add=True):
+        labels, _, _ = bc_labels(seg, truth, order, rule=rule)
     return labels
 
 
@@ -321,9 +324,9 @@ def hmt_train(slices, policy="median", rule="f1", n_trees=100, seed=0,
     X, y = training_samples(slices, policy, rule, watershed_level,
                             pre_merge_size, n_bins, st)
     if classifier == "rf":
-        t = time.perf_counter()
-        forest = train_forest(X, y, n_trees=n_trees, seed=seed, n_jobs=-1)
-        st["t_forest"] = time.perf_counter() - t
+        with _stage(st, "t_forest", "train.forest"):
+            forest = train_forest(X, y, n_trees=n_trees, seed=seed,
+                                  n_jobs=-1)
         return HmtModel(forest=forest, n_bins=n_bins, policy=policy)
     if classifier == "rf_ensemble":
         cfg = FeatureConfig.standard(
@@ -331,10 +334,10 @@ def hmt_train(slices, policy="median", rule="f1", n_trees=100, seed=0,
         dim0, dim1 = bc_area_feature_indices(cfg)
         if ensemble_threshold is None:
             ensemble_threshold = float(np.median(X[:, dim1]))
-        t = time.perf_counter()
-        ens = train_forest_ensemble(X, y, dim0, dim1, ensemble_threshold,
-                                    n_trees=n_trees, seed=seed, n_jobs=-1)
-        st["t_forest"] = time.perf_counter() - t
+        with _stage(st, "t_forest", "train.forest"):
+            ens = train_forest_ensemble(X, y, dim0, dim1, ensemble_threshold,
+                                        n_trees=n_trees, seed=seed,
+                                        n_jobs=-1)
         return HmtModel(forest=None, n_bins=n_bins, policy=policy,
                         kind="rf_ensemble", extra={"ensemble": ens})
     m = train_mlp_supervised(X, y, hidden=mlp_hidden, seed=seed,
@@ -445,7 +448,9 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
     device_bc; t_features, t_predict for device and host; t_exact_saliency
     for device, whose mean policy, once its plan is known, runs merge and
     saliencies as one program timed as t_plan_program instead of the
-    two) and the merge loop's counters.
+    two) and the merge loop's counters.  The call is the span hmt.segment,
+    each stage a span inside it (hmt.watershed ... hmt.segmentation; the
+    device merge's own spans for engine="device").
 
     Returns (segmentation, info dict with seg0, order, probs, n_picks)."""
     if engine not in ENGINES:
@@ -471,53 +476,46 @@ def hmt_segment(pb, intensity, model: HmtModel, watershed_level=0.05,
             f"model.policy={model.policy!r}")
     dev = resolve_device(device)
     st = stats if stats is not None else {}
+    with profiling.span("hmt.segment"):
+        with _stage(st, "t_watershed", "hmt.watershed"):
+            seg = watershed(pb, watershed_level)
+        with _stage(st, "t_pre_merge", "hmt.pre_merge"):
+            if pre_merge_size:
+                seg = pre_merge(seg, pb, (pre_merge_size,))
+        with _stage(st, "t_rag", "hmt.rag"):
+            rag = build_rag(seg, contour_only=False)
 
-    t = time.perf_counter()
-    seg = watershed(pb, watershed_level)
-    st["t_watershed"] = time.perf_counter() - t
-    t = time.perf_counter()
-    if pre_merge_size:
-        seg = pre_merge(seg, pb, (pre_merge_size,))
-    st["t_pre_merge"] = time.perf_counter() - t
-    t = time.perf_counter()
-    rag = build_rag(seg, contour_only=False)
-    st["t_rag"] = time.perf_counter() - t
-
-    if engine == "device_bc":
-        cfg = FeatureConfig.standard(
-            pb, intensity, n_bins=model.n_bins,
-            boundary_thresholds=model.boundary_thresholds)
-        scorer = make_label_scorer(model.forest, label=-1, device=dev)
-        order, probs = merge_order_bc_device(rag, cfg, scorer, stats=st,
-                                             device=dev, dtype=dtype)
-    else:
-        if engine == "device":
-            order, sals = greedy_merge_device(rag, pb, policy=model.policy,
-                                              stats=stats, device=dev,
-                                              dtype=dtype)
+        if engine == "device_bc":
+            cfg = FeatureConfig.standard(
+                pb, intensity, n_bins=model.n_bins,
+                boundary_thresholds=model.boundary_thresholds)
+            scorer = make_label_scorer(model.forest, label=-1, device=dev)
+            order, probs = merge_order_bc_device(rag, cfg, scorer, stats=st,
+                                                 device=dev, dtype=dtype)
         else:
-            t = time.perf_counter()
-            order, sals = greedy_merge_native(rag, pb, policy=model.policy)
-            st["t_merge_loop"] = time.perf_counter() - t
-        t = time.perf_counter()
-        feats = _features_for(seg, pb, intensity, model, order, sals)
-        st["t_features"] = time.perf_counter() - t
-        t = time.perf_counter()
-        probs = model.predict_merge_prob(feats, backend=backend, device=dev,
-                                         dtype=dtype)
-        st["t_predict"] = time.perf_counter() - t
-    t = time.perf_counter()
-    tree = build_tree(order)
-    if mode == "greedy":
-        picks = resolve_tree_greedy(tree, node_potentials(tree, probs))
-    else:
-        picks = segment_ccm_picks(tree, probs)
-    st["t_tree_resolve"] = time.perf_counter() - t
-    t = time.perf_counter()
-    out = final_segmentation(seg, tree, picks)
-    st["t_segmentation"] = time.perf_counter() - t
-    return out, {"seg0": seg, "order": order, "probs": probs,
-                 "n_picks": len(picks)}
+            if engine == "device":
+                order, sals = greedy_merge_device(rag, pb, policy=model.policy,
+                                                  stats=stats, device=dev,
+                                                  dtype=dtype)
+            else:
+                with _stage(st, "t_merge_loop", "hmt.merge_loop"):
+                    order, sals = greedy_merge_native(rag, pb,
+                                                      policy=model.policy)
+            with _stage(st, "t_features", "hmt.features"):
+                feats = _features_for(seg, pb, intensity, model, order, sals)
+            with _stage(st, "t_predict", "hmt.predict"):
+                probs = model.predict_merge_prob(feats, backend=backend,
+                                                 device=dev, dtype=dtype)
+        with _stage(st, "t_tree_resolve", "hmt.tree_resolve"):
+            tree = build_tree(order)
+            if mode == "greedy":
+                picks = resolve_tree_greedy(tree, node_potentials(tree, probs))
+            else:
+                picks = segment_ccm_picks(tree, probs)
+        with _stage(st, "t_segmentation", "hmt.segmentation"):
+            out = final_segmentation(seg, tree, picks)
+        return out, {"seg0": seg, "order": order, "probs": probs,
+                     "n_picks": len(picks)}
 
 
 def evaluate(seg, truth):
