@@ -853,9 +853,23 @@ def _cap_quantize(x, lo=256, tile=256):
 # statistic, payload layout, dmax, dtype name, vertex payload), for the life
 # of the process; a memoized plan replays without reading alive counts
 _PLAN_MEMO = {}
-# the supersteps of a memoized plan's last phase in the run that measured
-# it, by the same key: the count a captured program runs that phase for
+# the most supersteps a memoized plan's last phase has run in any call (its
+# eager continuation included), by the same key: the count a captured
+# program runs that phase for
 _PLAN_LAST_STEPS = {}
+
+
+def _keep_last_steps(memo_key, steps):
+    """Record a memoized plan's last-phase supersteps, keeping the largest
+    count seen: data that needs one superstep more than the plan's graph
+    runs goes on eagerly once, and the next call captures a graph that
+    runs it (a guarded superstep that is not needed changes nothing).
+    A raise counts plan.last_steps_raised."""
+    old = _PLAN_LAST_STEPS.get(memo_key)
+    if old is None or steps > old:
+        _PLAN_LAST_STEPS[memo_key] = steps
+        if old is not None:
+            profiling.count("plan.last_steps_raised")
 
 
 # ---------------------------------------------------------------------------
@@ -1055,7 +1069,8 @@ class _PlanGraph:
 
 # captured plan programs by plan, statistic, sizes, options and device, for
 # the life of the process (unbounded, as glia_tpu's compiled programs);
-# each holds a private memory pool
+# each holds a private memory pool.  One graph a plan: a call with another
+# last-phase count captures again, in place of the plan's graph
 _PLAN_GRAPHS = {}
 
 
@@ -1090,7 +1105,8 @@ def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
     """Run a plan: the plan program, then one batched read of its
     scalars.  On a CUDA device, with the last phase's superstep count
     known (a memoized plan's), the program is a captured CUDA graph
-    (captured at the first such call); otherwise it runs eagerly, its
+    (captured at the first such call, and again in place of the plan's
+    graph when the count has changed); otherwise it runs eagerly, its
     last phase for ``last_steps`` (0 when unknown).  A last phase with a
     live edge after those supersteps goes on eagerly from the program's
     state, up to ``max_supersteps`` (the same supersteps, so the same
@@ -1113,9 +1129,14 @@ def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
         pack64 = _pack64_enabled()
         key = (args[0], stat_fn, R, dmax, max_supersteps,
                _dtype_name(dtype), with_vsz,
-               tuple(tuple(t.shape) for t in _flat(inputs)), sal_L, K,
+               tuple(tuple(t.shape) for t in _flat(inputs)), sal_L,
                str(dev), pack64)
         g = _PLAN_GRAPHS.get(key)
+        if g is not None and g.info["last_steps"] != K:
+            # the superseded graph and its memory pool go before the new
+            # capture takes a pool
+            del _PLAN_GRAPHS[key]
+            g = None
         if g is None:
             info = {"E": entries[0][1], "R": R, "phases": len(entries),
                     "last_steps": K, "sal_L": sal_L,
@@ -1273,10 +1294,11 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     every phase but the last, and memoizes it per shape (with the pooled
     mean's plans, in the plan store when there is one).  Later calls run
     the memoized plan as one program (``_run_plan``; on a CUDA device a
-    captured CUDA graph): ``stats["plan_replayed"]``, and
-    ``stats["plan_graph"]`` when it came from a graph.  Another graph of
-    the same shape may replay the plan too, at the cost of at most one
-    fallback.  An explicit plan is a list
+    captured CUDA graph), its last phase for the most supersteps a call
+    of the plan has needed (``_keep_last_steps``):
+    ``stats["plan_replayed"]``, and ``stats["plan_graph"]`` when it came
+    from a graph.  Another graph of the same shape may replay the plan
+    too, at the cost of at most one fallback.  An explicit plan is a list
     of (steps, edge_cap, vert_cap), caps as fractions of E / R (<= 1.0)
     or absolute rows, run eagerly; its last entry runs to completion.  A
     capacity overflow or an unfinished frontier falls back to the
@@ -1339,7 +1361,7 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
         _PLAN_MEMO[memo_key] = entries
         _plan_store_save()
     if plan is None:
-        _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
+        _keep_last_steps(memo_key, run.last_steps)
     st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in entries],
               fallback=False, plan_replayed=plan is None and not discovered,
               plan_graph=run.graph, eager_supersteps=run.eager_steps)
@@ -1679,7 +1701,7 @@ def _merge_exact_call(u, v, s, c, n_regions, dmax, max_supersteps, dt, stats,
         return merge_batched_device_exact(
             u, v, s, c, n_regions, dmax=dmax, max_supersteps=max_supersteps,
             dtype=dt, stats=stats, device=dev), False
-    _PLAN_LAST_STEPS.setdefault(memo_key, run.last_steps)
+    _keep_last_steps(memo_key, run.last_steps)
     st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in plan],
               fallback=False, plan_replayed=True, plan_graph=run.graph,
               sal_L=L, eager_supersteps=run.eager_steps)

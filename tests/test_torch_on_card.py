@@ -1,6 +1,7 @@
 """The port's hardware suite: its kernels and device engines on the CUDA
 card (counterpart of tests_tpu/test_real_tpu.py, test for test, with its
-sizes, seeds and tolerances).
+sizes, seeds and tolerances), and the plan graph's recapture when a
+memoized last-phase count is raised, which glia_tpu has no counterpart of.
 
 Run on a machine with a card, from the repository's root:
 
@@ -297,3 +298,45 @@ def test_one_dispatch_merge_exact_on_card():
     ok = np.isfinite(ex_host)
     np.testing.assert_allclose(-s2[:n2].double().cpu().numpy()[ok],
                                ex_host[ok], rtol=1e-4, atol=1e-6)
+
+
+def test_raised_last_steps_recaptures_the_plan_graph_on_card():
+    """A memoized count one superstep short: the next call replays the
+    short graph and finishes the last phase eagerly, raising the count;
+    the call after it captures the plan's graph again, for the raised
+    count, in place of the short one, and runs every superstep in it
+    with the eager call's rows and saliencies."""
+    from glia_tpu_torch.graph import merge_device as md
+
+    data, seg, rag = _section(160, 70, 9)
+    u, v, s, c = md.edge_mean_arrays(rag, data["pb"])
+    R = rag.n_regions
+
+    def call(st):
+        return md.merge_batched_device_exact(u, v, s, c, R, stats=st)
+
+    # discovery (unless an earlier test memoized the shape), then a replay
+    call({})
+    st0 = {}
+    call(st0)
+    assert st0["plan_graph"] is True
+    key = (len(u), R, md._mean_stat_packed, ((2, "float32"),), 4,
+           "float32", False)
+    K = md._PLAN_LAST_STEPS[key]
+    md._PLAN_LAST_STEPS[key] = K - 1
+    st1, st2 = {}, {}
+    o1, s1, n1 = call(st1)
+    o2, s2, n2 = call(st2)
+    assert st1["plan_graph"] is True and st1["eager_supersteps"] == 1
+    assert md._PLAN_LAST_STEPS[key] == K
+    assert st2["plan_graph"] is True and st2["eager_supersteps"] == 0
+    assert st2["n_supersteps"] == st1["n_supersteps"] == st0["n_supersteps"]
+    graphs = [g for g in md.plan_graph_info()
+              if (g["E"], g["R"]) == (len(u), R) and g["sal_L"] is not None]
+    assert len(graphs) == 1
+    assert graphs[0]["last_steps"] == K and graphs[0]["replays"] == 1
+    assert n2 == n1 > 0
+    np.testing.assert_array_equal(o2[:n2].cpu().numpy(),
+                                  o1[:n1].cpu().numpy())
+    np.testing.assert_array_equal(s2[:n2].cpu().numpy(),
+                                  s1[:n1].cpu().numpy())

@@ -9,7 +9,9 @@ takes glia_tpu's one-jit pipeline and the port's plan program (eager on
 the CPU: the code a CUDA graph captures on the card).  Required: equal
 rows, saliencies at rtol 1e-12, equal superstep counts, buckets and
 fallback flags; after a lowered last-phase count (the port then finishes
-the last phase eagerly), an injected too-tight plan (both fall back and
+the last phase eagerly once, raises the count back and runs the next call
+in the program), with a count above the need (the same bits), an
+injected too-tight plan (both fall back and
 drop it) and through the plan store (equal plans and depth capacities,
 key for key; a fresh load replays; a corrupt store rediscovers).
 """
@@ -144,6 +146,31 @@ def _only_key(memo):
     return key
 
 
+def _runner(what, data, rag):
+    """``run(mod, stats, **kw)``: merge_batched_device_exact (``what`` =
+    "exact") or a policy's fused_ms merge, on ``mod``."""
+    if what == "exact":
+        def run(mod, st, **kw):
+            return _exact_run(mod, data, rag, stats=st, **kw)
+    else:
+        def run(mod, st, **kw):
+            return _policy_run(mod, what, data, rag, mode="fused_ms",
+                               stats=st, **kw)
+    return run
+
+
+def _discover(run):
+    """glia_tpu's steady-state call (result, stats), then the port's
+    discovery call: (glia_tpu's result, its stats, the memo key, the
+    last-phase count the discovery measured)."""
+    _, _, want, sw = _two_calls(lambda st: run(jm, st))
+    run(tm, {}, device="cpu")
+    key = _only_key(tm._PLAN_LAST_STEPS)
+    K = tm._PLAN_LAST_STEPS[key]
+    assert K >= 1
+    return want, sw, key, K
+
+
 @pytest.mark.parametrize("lower", ["to_0", "by_1"])
 @pytest.mark.parametrize("what", ["median", "exact"])
 def test_last_phase_goes_on_past_a_lowered_count(bench512, fresh, lower,
@@ -152,24 +179,74 @@ def test_last_phase_goes_on_past_a_lowered_count(bench512, fresh, lower,
     the count lowered, the port finishes that phase eagerly from the
     program's state (and takes the exact saliencies again), and the rows
     are still glia_tpu's."""
-    data, rag = bench512
-    if what == "exact":
-        def run(mod, st, **kw):
-            return _exact_run(mod, data, rag, stats=st, **kw)
-    else:
-        def run(mod, st, **kw):
-            return _policy_run(mod, what, data, rag, mode="fused_ms",
-                               stats=st, **kw)
-    _, _, want, sw = _two_calls(lambda st: run(jm, st))
-    run(tm, {}, device="cpu")
-    key = _only_key(tm._PLAN_LAST_STEPS)
-    K = tm._PLAN_LAST_STEPS[key]
-    assert K >= 1
+    run = _runner(what, *bench512)
+    want, sw, key, K = _discover(run)
     tm._PLAN_LAST_STEPS[key] = 0 if lower == "to_0" else K - 1
     sg = {}
     got = run(tm, sg, device="cpu")
     assert sg["plan_replayed"] is True
     _assert_same_run(got, want, sg, sw)
+
+
+@pytest.mark.parametrize("what", ["exact", "mean", "median"])
+def test_a_lowered_count_goes_eager_once_then_runs_in_the_program(
+        bench512, fresh, what):
+    """With the memoized count one short, the next call finishes the last
+    phase eagerly (one superstep) and raises the count back; the call
+    after it runs every superstep in the program, with no eager
+    superstep, and returns glia_tpu's rows and saliencies."""
+    run = _runner(what, *bench512)
+    want, sw, key, K = _discover(run)
+    tm._PLAN_LAST_STEPS[key] = K - 1
+    st1, st2 = {}, {}
+    first = run(tm, st1, device="cpu")
+    assert st1["plan_replayed"] is True and st1["eager_supersteps"] == 1
+    assert tm._PLAN_LAST_STEPS[key] == K
+    got = run(tm, st2, device="cpu")
+    assert st2["plan_replayed"] is True and st2["eager_supersteps"] == 0
+    _assert_same_run(got, want, st2, sw)
+    _assert_same_run(first, want, st1, sw)
+
+
+@pytest.mark.parametrize("what", ["exact", "mean", "median"])
+def test_a_count_above_the_need_changes_nothing_and_stays(bench512, fresh,
+                                                          what):
+    """The last phase run for K + 2 supersteps where the data needs K:
+    the same rows, saliencies (bit for bit) and superstep count as at K,
+    so the guarded supersteps past the need are no-ops; and a call that
+    needed fewer supersteps leaves the count where it was."""
+    run = _runner(what, *bench512)
+    want, sw, key, K = _discover(run)
+    st_k, st_a = {}, {}
+    at_k = run(tm, st_k, device="cpu")
+    tm._PLAN_LAST_STEPS[key] = K + 2
+    above = run(tm, st_a, device="cpu")
+    assert st_a["plan_replayed"] is True and st_a["eager_supersteps"] == 0
+    assert st_a["n_supersteps"] == st_k["n_supersteps"]
+    assert above[2] == at_k[2]
+    np.testing.assert_array_equal(_np(above[0]), _np(at_k[0]))
+    np.testing.assert_array_equal(_np(above[1]), _np(at_k[1]))
+    _assert_same_run(above, want, st_a, sw)
+    assert tm._PLAN_LAST_STEPS[key] == K + 2
+
+
+def test_an_explicit_plan_leaves_the_count(bench512, fresh):
+    """An explicit plan (here the memoized one, passed in) runs eagerly,
+    its last phase to completion, and records no last-phase count."""
+    data, rag = bench512
+    want, sw, key, K = _discover(_runner("mean", data, rag))
+    tm._PLAN_LAST_STEPS[key] = K - 1
+    u, v, s, c = jm.edge_mean_arrays(rag, data["pb"])
+    sc = torch.stack([torch.as_tensor(s, dtype=torch.float64),
+                      torch.as_tensor(c, dtype=torch.float64)], dim=1)
+    st = {}
+    got = tm._fused_multiphase_core(
+        u, v, (sc,), tm._mean_stat_packed, rag.n_regions, 256,
+        torch.float64, torch.device("cpu"), plan=tm._PLAN_MEMO[key],
+        stats=st)
+    assert st["plan_replayed"] is False and st["eager_supersteps"] >= 1
+    assert tm._PLAN_LAST_STEPS[key] == K - 1
+    _assert_same_run(got, want, st, sw)
 
 
 def _tight_plan(rag):

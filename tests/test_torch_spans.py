@@ -9,7 +9,8 @@ entered.  The kernels' byte counts: a graph's tally carries them into
 each replay.  The program: ``merge_batched_device_exact`` writes one
 ``merge.exact`` record a call (a plan-memo miss, then hits; the eager
 continuation's span and supersteps only where the plan is one superstep
-short) with its ``stats`` seconds taken from the spans, and
+short, which raises the count once: plan.last_steps_raised) with its
+``stats`` seconds taken from the spans, and
 ``hmt_segment`` / ``hmt_train`` fill their stage seconds from theirs.
 Every test starts from empty records and plan memos.
 """
@@ -258,17 +259,20 @@ def _exact(section, st):
 def test_merge_exact_writes_one_record_a_call(section):
     """Discovery, then the one program twice, then the program with its
     last phase one superstep short (the plan of a map that needs one
-    more): one merge.exact record a call, stats seconds = span seconds."""
+    more: it goes on eagerly and raises the count), then the program at
+    the raised count (no eager continuation): one merge.exact record a
+    call, stats seconds = span seconds."""
     st0, st1, st2 = {}, {}, {}
     _exact(section, st0)
     _exact(section, st1)
     want = _exact(section, st2)
     (key,) = tm._PLAN_LAST_STEPS
     tm._PLAN_LAST_STEPS[key] -= 1
-    st3 = {}
+    st3, st4 = {}, {}
     got = _exact(section, st3)
-    assert [r.name for r in profiling.records] == ["merge.exact"] * 4
-    r0, r1, r2, r3 = profiling.records
+    again = _exact(section, st4)
+    assert [r.name for r in profiling.records] == ["merge.exact"] * 5
+    r0, r1, r2, r3, r4 = profiling.records
 
     assert r0.counts == {"plan.memo_miss": 1}
     assert st0["plan_replayed"] is False and "t_plan_program" not in st0
@@ -276,7 +280,7 @@ def test_merge_exact_writes_one_record_a_call(section):
     assert st0["t_exact_saliency"] == r0.spans["merge.exact_saliency"]
     assert r0.spans["merge.discovery"] >= st0["t_merge_loop"]
 
-    for st, r in ((st1, r1), (st2, r2)):
+    for st, r in ((st1, r1), (st2, r2), (st4, r4)):
         assert r.counts == {"plan.memo_hit": 1}
         assert st["t_plan_program"] == r.t1 - r.t0
         assert st["eager_supersteps"] == 0
@@ -287,14 +291,47 @@ def test_merge_exact_writes_one_record_a_call(section):
 
     assert st3["eager_supersteps"] >= 1
     assert r3.counts == {"plan.memo_hit": 1,
-                         "merge.eager_supersteps": st3["eager_supersteps"]}
+                         "merge.eager_supersteps": st3["eager_supersteps"],
+                         "plan.last_steps_raised": 1}
     assert r3.spans["merge.eager_tail"] > 0
     assert st3["t_plan_program"] == r3.t1 - r3.t0
-    assert st3["n_supersteps"] == st2["n_supersteps"]
+    assert st3["n_supersteps"] == st2["n_supersteps"] == st4["n_supersteps"]
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
-    assert profiling.totals == {"plan.memo_miss": 1, "plan.memo_hit": 3,
+    np.testing.assert_array_equal(again[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(again[1].numpy(), got[1].numpy())
+    assert profiling.totals == {"plan.memo_miss": 1, "plan.memo_hit": 4,
                                 "merge.eager_supersteps":
-                                st3["eager_supersteps"]}
+                                st3["eager_supersteps"],
+                                "plan.last_steps_raised": 1}
+
+
+@pytest.mark.parametrize("what", ["exact", "mean"])
+def test_last_steps_raised_counts_once_a_raise(section, what):
+    """plan.last_steps_raised counts each call that raises a memoized
+    plan's last-phase count, once, and nothing else: not the discovery
+    that records the first count, not a call at the recorded count, not
+    a call below it."""
+    u, v, s, c, R = section
+
+    def call():
+        if what == "exact":
+            _exact(section, {})
+        else:
+            tm.merge_batched_device(u, v, s, c, R, mode="fused_ms",
+                                    device="cpu")
+
+    call()
+    (key,) = tm._PLAN_LAST_STEPS
+    K = tm._PLAN_LAST_STEPS[key]
+    for lower, raised in ((1, 1), (0, 1), (2, 2), (-1, 2)):
+        tm._PLAN_LAST_STEPS[key] = K - lower
+        call()
+        assert tm._PLAN_LAST_STEPS[key] == max(K, K - lower)
+        assert profiling.totals.get("plan.last_steps_raised", 0) == raised
+    if what == "exact":
+        # the count lands in the raising call's record
+        assert [r.counts.get("plan.last_steps_raised", 0)
+                for r in profiling.records] == [0, 1, 0, 1, 0]
 
 
 def test_merge_exact_fallback_counts(section):
