@@ -27,11 +27,12 @@ fills (group_stats' conventions, so count<=0 rows serialize to zeros,
 feat.hxx:703).
 
 The supersteps run as a Python loop with one host sync each (the loop
-condition).  Sums over edges go through ``segment_sum_auto``.  The float
-sums use its sorted form, which adds each segment's rows in index order on
-the CPU (as XLA's scatter does) and on the card (the CUDA kernel's sorted
-entry point), so two runs give the same bits: the edges are kept sorted by
-their lower endpoint (``e_lo``), and the sums by the upper endpoint go
+condition and the superstep's merge count, read in one copy).  Sums over
+edges go through ``segment_sum_auto``.  The float sums use its sorted
+form, which adds each segment's rows in index order on the CPU (as XLA's
+scatter does) and on the card (the CUDA kernel's sorted entry point), so
+two runs give the same bits: the edges are kept sorted by their lower
+endpoint (``e_lo``), and the sums by the upper endpoint go
 through one stable sort per superstep.
 """
 
@@ -50,6 +51,7 @@ from ..features.config import FeatureConfig
 from ..features.device import (DeviceFeatureSpec, bc_features_dev,
                                counting_hist)
 from ..ops.segment_csr import segment_sum_auto
+from ..utils import profiling
 from .merge_device import order_to_keys
 from .rag import Rag
 
@@ -572,14 +574,25 @@ def _select_independent_max(probs, valid, eu, ev, C):
 
 def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
     """One superstep: score every candidate, merge the independent set of
-    probability maxima, rekey and deduplicate the edges.
+    probability maxima, rekey and deduplicate the edges.  ``state`` is
+    left as it was: the new state is made of new tensors.
 
     Returns (new state, rows [E, 3] (u, v, new id) dense ids, probs [E],
-    merge mask [E], n_table_left, n_scored) -- the last two as tensors."""
+    merge mask [E], n_table_left, n_scored, n_merged) -- the last three
+    as tensors."""
+    with profiling.span("bc.features"):
+        feats, valid = candidate_features(state, static)
+    with profiling.span("bc.score"):
+        probs = predict_fn(feats).to(feats.dtype)
+    with profiling.span("bc.commit"):
+        return _commit(state, static, probs, valid)
+
+
+def _commit(state, static: BcDeviceStatic, probs, valid):
+    """The superstep after scoring: selection, new records, rekey and
+    dedupe (``superstep``'s returns but the state's)."""
     C, E = static.C, static.E
     res_off, rmin_off = static.res_off, static.rmin_off
-    feats, valid = candidate_features(state, static)
-    probs = predict_fn(feats).to(feats.dtype)
     eu, ev = state["eu"], state["ev"]
     ok = _select_independent_max(probs, valid, eu, ev, C)
 
@@ -646,11 +659,11 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
     swap = eu2 > ev2
     eu3 = torch.where(swap, ev2, eu2)
     ev3 = torch.where(swap, eu2, ev2)
-    perm = torch.tensor([P_MV, P_NV, P_MU, P_NU], device=eu.device)
+    # (m_u, n_u, m_v, n_v) -> (m_v, n_v, m_u, n_u): a roll by two parts
     sw = swap[:, None, None]
-    e_add = torch.where(sw, e_add[:, perm], e_add)
-    e_min = torch.where(sw, e_min[:, perm], e_min)
-    e_max = torch.where(sw, e_max[:, perm], e_max)
+    e_add = torch.where(sw, e_add.roll(2, 1), e_add)
+    e_min = torch.where(sw, e_min.roll(2, 1), e_min)
+    e_max = torch.where(sw, e_max.roll(2, 1), e_max)
 
     # --- dedupe duplicate pairs: a stable sort on the packed key
     # (lo, hi), the order of lax.sort((lo, hi, idx), num_keys=2), so the
@@ -698,15 +711,32 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
 
     n_scored = valid.sum()
     n_left = (st["e_alive"] & st["e_table"]).sum()
-    return st, rows, probs, ok, n_left, n_scored
+    return st, rows, probs, ok, n_left, n_scored, n_new
 
 
-def merge_order_bc_device(rag: Rag, cfg: FeatureConfig,
+def stage_bc_state(rag: Rag, cfg: FeatureConfig, device: DeviceLike = None,
+                   dtype: Optional[torch.dtype] = None):
+    """The loop's initial state on the device: ``build_state`` packed on
+    the host and uploaded by ``state_to_device`` (floats in ``dtype``).
+    Returns (device state, BcDeviceStatic), which
+    ``merge_order_bc_device(..., state=...)`` takes as it is, and leaves
+    unchanged, call after call.  The span ``bc.stage``."""
+    dev = resolve_device(device)
+    dt = default_dtype(dev, dtype)
+    with profiling.span("bc.stage"):
+        state_np, static = build_state(rag, cfg)
+        state = state_to_device(state_np, dev, dt)
+        synchronize(dev)
+    return state, static
+
+
+def merge_order_bc_device(rag: Rag, cfg: Optional[FeatureConfig],
                           predict_fn: Callable[[torch.Tensor], torch.Tensor],
                           max_supersteps: Optional[int] = None,
                           stats: Optional[dict] = None,
                           device: DeviceLike = None,
-                          dtype: Optional[torch.dtype] = None):
+                          dtype: Optional[torch.dtype] = None,
+                          state=None):
     """Batched classifier-in-the-loop merge on the device.
 
     predict_fn: feats [E, D] tensor -> merge probabilities [E] (e.g.
@@ -716,44 +746,77 @@ def merge_order_bc_device(rag: Rag, cfg: FeatureConfig,
     set of probability maxima is merged, supersteps run until no table
     candidate is left or ``max_supersteps`` is reached.
 
+    ``state``: the (device state, BcDeviceStatic) of ``stage_bc_state``
+    for ``rag``, staged once and reused by any number of calls, each
+    under its own ``predict_fn``; the call reads it and writes nothing
+    into it (``cfg`` and ``dtype`` are then not used: the state holds its
+    features and its dtype).  Without it the call stages its own.
+
     A ``stats`` dict, when passed, receives n_supersteps, n_scored, E,
-    feat_dim and the wall seconds of build_state (t_build_state, host
-    packing and upload) and of the superstep loop (t_merge_loop).
+    feat_dim, merges_per_superstep (the rows of each superstep, in order)
+    and the wall seconds of staging (t_build_state, host packing and
+    upload; 0 with ``state``) and of the superstep loop (t_merge_loop).
+
+    The call is the span ``bc.merge``, with ``bc.stage`` (staging, without
+    ``state``), ``bc.features``, ``bc.score`` (``predict_fn``),
+    ``bc.commit`` (selection, records, rekey, dedupe), ``bc.step_read``
+    (the one host read a superstep) and ``bc.readback`` (order,
+    probabilities, ``order_to_keys``) inside it, and the counts
+    ``bc.supersteps`` and ``bc.scored``.
     """
-    dev = resolve_device(device)
-    dt = default_dtype(dev, dtype)
-    t0 = time.perf_counter()
-    state_np, static = build_state(rag, cfg)
-    state = state_to_device(state_np, dev, dt)
-    synchronize(dev)
-    t1 = time.perf_counter()
+    with profiling.span("bc.merge"):
+        t0 = time.perf_counter()
+        if state is None:
+            state, static = stage_bc_state(rag, cfg, device, dtype)
+        else:
+            state, static = state
+        t1 = time.perf_counter()
+        order, sals, n_scored, steps = _merge_loop(state, static, predict_fn,
+                                                   max_supersteps)
+        with profiling.span("bc.readback"):
+            n_m = sum(steps)
+            order_dense = order[:n_m].cpu().numpy()
+            sals = sals[:n_m].cpu().numpy().astype(np.float64)
+            n_scored = int(n_scored)
+            keys = order_to_keys(order_dense, n_m, rag)
+        t2 = time.perf_counter()
+        profiling.count("bc.supersteps", len(steps))
+        profiling.count("bc.scored", n_scored)
+    if stats is not None:
+        stats.update(n_supersteps=len(steps), n_scored=n_scored,
+                     E=static.E, feat_dim=static.feat_dim,
+                     merges_per_superstep=steps,
+                     t_build_state=t1 - t0, t_merge_loop=t2 - t1)
+    return keys, sals
+
+
+def _merge_loop(state, static: BcDeviceStatic, predict_fn: Callable,
+                max_supersteps: Optional[int]):
+    """The supersteps from ``state``: (order rows [R, 3] dense ids (one
+    spare row), their probabilities, candidates scored (a device
+    scalar), merges of each superstep)."""
+    dev = state["eu"].device
     if max_supersteps is None:
         max_supersteps = 4 * int(np.ceil(np.log2(max(static.R, 2)))) + 16
-
     R = static.R
     max_m = max(R - 1, 1)
     # one extra row: the dump slot for rows of edges not merged
     order = torch.full((max_m + 1, 3), -1, dtype=torch.int64, device=dev)
-    sal = torch.zeros(max_m + 1, dtype=dt, device=dev)
+    sal = torch.zeros(max_m + 1, dtype=state["c_add"].dtype, device=dev)
     n_scored = torch.zeros((), dtype=torch.int64, device=dev)
-    n_left = int((state["e_alive"] & state["e_table"]).sum())
-    n_steps = 0
-    while n_left > 0 and n_steps < max_supersteps:
-        state, rows, probs, ok, n_left_t, scored = superstep(
+    with profiling.span("bc.step_read"):
+        n_left = int((state["e_alive"] & state["e_table"]).sum())
+    steps = []
+    while n_left > 0 and len(steps) < max_supersteps:
+        state, rows, probs, ok, n_left_t, scored, n_new = superstep(
             state, static, predict_fn)
-        slot = torch.where(ok, rows[:, 2] - R, max_m)
-        order[slot] = rows
-        sal[slot] = probs
-        n_scored += scored
-        n_steps += 1
-        n_left = int(n_left_t)
-    n_m = int(state["next_id"]) - R
-    order_dense = order[:n_m].cpu().numpy()
-    sals = sal[:n_m].cpu().numpy().astype(np.float64)
-    t2 = time.perf_counter()
-    if stats is not None:
-        stats.update(n_supersteps=n_steps, n_scored=int(n_scored),
-                     E=static.E, feat_dim=static.feat_dim,
-                     t_build_state=t1 - t0, t_merge_loop=t2 - t1)
-
-    return order_to_keys(order_dense, n_m, rag), sals
+        with profiling.span("bc.commit"):
+            slot = torch.where(ok, rows[:, 2] - R, max_m)
+            order[slot] = rows
+            sal[slot] = probs
+            n_scored += scored
+            read = torch.stack([n_left_t, n_new])
+        with profiling.span("bc.step_read"):
+            n_left, n = read.tolist()
+        steps.append(n)
+    return order, sal, n_scored, steps
