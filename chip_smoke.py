@@ -798,6 +798,7 @@ def check_segment_sum(name, values, ids, S, is_sorted, prev_ms=None):
     sorted entry must also give the bits of the CPU's ``index_add_``, for
     these values and for their float64 copies.  ``prev_ms``: the time at
     this shape before the sorted entry's redesign."""
+    from glia_tpu_torch.ops import cuda as kcuda
     from glia_tpu_torch.ops.cuda import segment_sum_cuda
     from glia_tpu_torch.ops.segment_csr import segment_sum_torch
 
@@ -850,10 +851,11 @@ def check_segment_sum(name, values, ids, S, is_sorted, prev_ms=None):
     library_ms = cuda_graph_time_ms(library)
     call_ms = cuda_time_ms(kernel, reps=50)
     library_call_ms = cuda_time_ms(library, reps=50)
-    # the bound: every id and the values of the rows this run's ids keep
-    # read once, the output written once; one add per kept value
+    # the bound: B2's byte model (every id and the values of the rows
+    # this run's ids keep read once, the output rows they reach written
+    # once); one add per kept value
     kept = int(((ids >= 0) & (ids < S)).sum())
-    bytes_moved = kept * F * w + 8 * B + S * F * w
+    bytes_moved = kcuda.segment_sum_bytes(B, F, S, w, kept=kept)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = kept * F / FP32_OPS_PER_S * 1e3
     res = {"shape": name, "entry": "sorted" if is_sorted else "atomic",

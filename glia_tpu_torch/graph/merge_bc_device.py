@@ -27,7 +27,11 @@ fills (group_stats' conventions, so count<=0 rows serialize to zeros,
 feat.hxx:703).
 
 The supersteps run as a Python loop with one host sync each (the loop
-condition and the superstep's merge count, read in one copy).  Sums over
+condition, the superstep's merge count and its live edges, read in one
+copy).  The dedupe leaves every live edge ahead of every dead one, so the
+loop runs each superstep on a prefix of the edge arrays: the capacity
+halves, from the staged E through ceil(E / 2**k), whenever the live edges
+fit (the rows cut off are dead, and dead rows add nothing).  Sums over
 edges go through ``segment_sum_auto``.  The float sums use its sorted
 form, which adds each segment's rows in index order on the CPU (as XLA's
 scatter does) and on the card (the CUDA kernel's sorted entry point), so
@@ -60,6 +64,10 @@ NEG_INF = -np.inf
 
 # part indices along the edge "parts" axis
 P_MU, P_NU, P_MV, P_NV = 0, 1, 2, 3
+
+# the state's arrays with a row per edge, which the loop cuts to a prefix
+EDGE_KEYS = ("eu", "ev", "e_lo", "e_alive", "e_table", "e_add", "e_min",
+             "e_max")
 
 
 class _Pack:
@@ -577,9 +585,11 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
     probability maxima, rekey and deduplicate the edges.  ``state`` is
     left as it was: the new state is made of new tensors.
 
-    Returns (new state, rows [E, 3] (u, v, new id) dense ids, probs [E],
-    merge mask [E], n_table_left, n_scored, n_merged) -- the last three
-    as tensors."""
+    Edges are the rows of ``state``'s edge arrays (``EDGE_KEYS``), as
+    many as it has.  Returns (new state, rows [E, 3] (u, v, new id) dense
+    ids, probs [E], merge mask [E], n_table_left, n_scored, n_merged,
+    n_live) -- the last four as tensors; every live edge of the new state
+    lies in its first n_live rows."""
     with profiling.span("bc.features"):
         feats, valid = candidate_features(state, static)
     with profiling.span("bc.score"):
@@ -591,7 +601,7 @@ def superstep(state, static: BcDeviceStatic, predict_fn: Callable):
 def _commit(state, static: BcDeviceStatic, probs, valid):
     """The superstep after scoring: selection, new records, rekey and
     dedupe (``superstep``'s returns but the state's)."""
-    C, E = static.C, static.E
+    C, E = static.C, state["eu"].shape[0]
     res_off, rmin_off = static.res_off, static.rmin_off
     eu, ev = state["eu"], state["ev"]
     ok = _select_independent_max(probs, valid, eu, ev, C)
@@ -667,7 +677,8 @@ def _commit(state, static: BcDeviceStatic, probs, valid):
 
     # --- dedupe duplicate pairs: a stable sort on the packed key
     # (lo, hi), the order of lax.sort((lo, hi, idx), num_keys=2), so the
-    # first of a run of duplicates is the lowest edge index ---
+    # first of a run of duplicates is the lowest edge index; edges not
+    # alive2 sort after every alive2 one, in index order ---
     idx = torch.arange(E, device=eu.device)
     lo_k = torch.where(alive2, eu3, C)
     hi_k = torch.where(alive2, ev3, idx)
@@ -711,7 +722,20 @@ def _commit(state, static: BcDeviceStatic, probs, valid):
 
     n_scored = valid.sum()
     n_left = (st["e_alive"] & st["e_table"]).sum()
-    return st, rows, probs, ok, n_left, n_scored, n_new
+    return st, rows, probs, ok, n_left, n_scored, n_new, alive2.sum()
+
+
+def _edge_capacity(E: int, n_live: int, k: int) -> int:
+    """The loop's next capacity exponent: the k' >= k of the smallest
+    capacity ceil(E / 2**k') that holds ``n_live`` rows.  k only grows
+    (live edges only die), so a merge sees at most ceil(log2 E) + 1 edge
+    shapes, the same ones on every call: the caching allocator reuses
+    the blocks of one call in the next, and a capture of the superstep
+    can key on the shape.  Cutting to exactly ``n_live`` would make a new
+    shape almost every superstep."""
+    while (E - 1) >> k and n_live <= ((E - 1) >> (k + 1)) + 1:
+        k += 1
+    return k
 
 
 def stage_bc_state(rag: Rag, cfg: FeatureConfig, device: DeviceLike = None,
@@ -752,9 +776,11 @@ def merge_order_bc_device(rag: Rag, cfg: Optional[FeatureConfig],
     into it (``cfg`` and ``dtype`` are then not used: the state holds its
     features and its dtype).  Without it the call stages its own.
 
-    A ``stats`` dict, when passed, receives n_supersteps, n_scored, E,
-    feat_dim, merges_per_superstep (the rows of each superstep, in order)
-    and the wall seconds of staging (t_build_state, host packing and
+    A ``stats`` dict, when passed, receives n_supersteps, n_scored, E
+    (the staged edges), feat_dim, merges_per_superstep (the rows of each
+    superstep, in order), edge_rows_per_superstep (the edge rows each
+    superstep ran on: E, then halved while the live edges fit) and the
+    wall seconds of staging (t_build_state, host packing and
     upload; 0 with ``state``) and of the superstep loop (t_merge_loop).
 
     The call is the span ``bc.merge``, with ``bc.stage`` (staging, without
@@ -762,7 +788,8 @@ def merge_order_bc_device(rag: Rag, cfg: Optional[FeatureConfig],
     ``bc.commit`` (selection, records, rekey, dedupe), ``bc.step_read``
     (the one host read a superstep) and ``bc.readback`` (order,
     probabilities, ``order_to_keys``) inside it, and the counts
-    ``bc.supersteps`` and ``bc.scored``.
+    ``bc.supersteps``, ``bc.scored`` and ``bc.edge_rows`` (Σ
+    edge_rows_per_superstep).
     """
     with profiling.span("bc.merge"):
         t0 = time.perf_counter()
@@ -771,8 +798,8 @@ def merge_order_bc_device(rag: Rag, cfg: Optional[FeatureConfig],
         else:
             state, static = state
         t1 = time.perf_counter()
-        order, sals, n_scored, steps = _merge_loop(state, static, predict_fn,
-                                                   max_supersteps)
+        order, sals, n_scored, steps, rows = _merge_loop(
+            state, static, predict_fn, max_supersteps)
         with profiling.span("bc.readback"):
             n_m = sum(steps)
             order_dense = order[:n_m].cpu().numpy()
@@ -786,6 +813,7 @@ def merge_order_bc_device(rag: Rag, cfg: Optional[FeatureConfig],
         stats.update(n_supersteps=len(steps), n_scored=n_scored,
                      E=static.E, feat_dim=static.feat_dim,
                      merges_per_superstep=steps,
+                     edge_rows_per_superstep=rows,
                      t_build_state=t1 - t0, t_merge_loop=t2 - t1)
     return keys, sals
 
@@ -794,11 +822,13 @@ def _merge_loop(state, static: BcDeviceStatic, predict_fn: Callable,
                 max_supersteps: Optional[int]):
     """The supersteps from ``state``: (order rows [R, 3] dense ids (one
     spare row), their probabilities, candidates scored (a device
-    scalar), merges of each superstep)."""
+    scalar), merges of each superstep, edge rows of each superstep).
+    After each superstep the edge arrays are cut to the capacity
+    ``_edge_capacity`` gives for its live edges (views: nothing moves)."""
     dev = state["eu"].device
     if max_supersteps is None:
         max_supersteps = 4 * int(np.ceil(np.log2(max(static.R, 2)))) + 16
-    R = static.R
+    R, E = static.R, static.E
     max_m = max(R - 1, 1)
     # one extra row: the dump slot for rows of edges not merged
     order = torch.full((max_m + 1, 3), -1, dtype=torch.int64, device=dev)
@@ -806,17 +836,24 @@ def _merge_loop(state, static: BcDeviceStatic, predict_fn: Callable,
     n_scored = torch.zeros((), dtype=torch.int64, device=dev)
     with profiling.span("bc.step_read"):
         n_left = int((state["e_alive"] & state["e_table"]).sum())
-    steps = []
+    steps, edge_rows, k = [], [], 0
     while n_left > 0 and len(steps) < max_supersteps:
-        state, rows, probs, ok, n_left_t, scored, n_new = superstep(
+        edge_rows.append(state["eu"].shape[0])
+        profiling.count("bc.edge_rows", edge_rows[-1])
+        state, rows, probs, ok, n_left_t, scored, n_new, n_live = superstep(
             state, static, predict_fn)
         with profiling.span("bc.commit"):
             slot = torch.where(ok, rows[:, 2] - R, max_m)
             order[slot] = rows
             sal[slot] = probs
             n_scored += scored
-            read = torch.stack([n_left_t, n_new])
+            read = torch.stack([n_left_t, n_new, n_live])
         with profiling.span("bc.step_read"):
-            n_left, n = read.tolist()
+            n_left, n, n_live = read.tolist()
         steps.append(n)
-    return order, sal, n_scored, steps
+        k2 = _edge_capacity(E, n_live, k)
+        if k2 > k:
+            k, cap = k2, ((E - 1) >> k2) + 1
+            state = {key: v[:cap] if key in EDGE_KEYS else v
+                     for key, v in state.items()}
+    return order, sal, n_scored, steps, edge_rows

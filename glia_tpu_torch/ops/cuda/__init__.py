@@ -10,11 +10,11 @@ Every wrapper takes CUDA tensors only and raises on anything else; a
 failed build or launch raises too.  ``launches`` counts each kernel's
 launches (and only those), so a run can show which kernels its main path
 went through; ``bytes_moved`` counts the bytes those launches must move
-at the least, from the shapes the wrapper holds (B2: the ids, the values
-and the output once each, an upper bound on the rows its ids keep; B1:
-the samples once, 16 bytes a real inner node, 8 a real leaf, the output
-once), and ``utils.profiling.count`` adds them to the open root span as
-``<kernel>.bytes``.  A call made while a CUDA graph captures launches
+at the least, from the shapes the wrapper holds (B2: the ids and the
+values once each, and the output rows its ids can reach, an upper bound
+on the segments they keep; B1: the samples once, 16 bytes a real inner
+node, 8 a real leaf, the output once), and ``utils.profiling.count``
+adds them to the open root span as ``<kernel>.bytes``.  A call made while a CUDA graph captures launches
 nothing then: it counts into the tally of ``graph_launch_tally``, and the
 graph adds that tally, bytes included, at each replay
 (``count_graph_replay``).
@@ -27,7 +27,7 @@ import ctypes
 import os
 import shutil
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -121,11 +121,16 @@ def forest_bytes(tables: ForestTables, B: int, D: int) -> int:
             + 4 * B * tables.n_classes)
 
 
-def segment_sum_bytes(B: int, F: int, S: int, itemsize: int) -> int:
+def segment_sum_bytes(B: int, F: int, S: int, itemsize: int,
+                      kept: Optional[int] = None) -> int:
     """Bytes a B2 launch of ``B`` rows of ``F`` values into ``S`` segments
-    must move at most: the int64 ids, every value and the output once
-    (the rows its ids drop are not known without a device read)."""
-    return 8 * B + (B + S) * F * itemsize
+    must move at most: the int64 ids once, the values of the ``kept``
+    rows (ids in [0, S); all ``B`` when not known, as a launch knows it
+    only from a device read) once, and the output rows they can reach
+    once, min(kept, S) of them (the output's zeroing is a fill of its
+    own, not the kernel's work)."""
+    kept = B if kept is None else kept
+    return 8 * B + (kept + min(kept, S)) * F * itemsize
 
 
 def _nvcc() -> str:

@@ -1,11 +1,11 @@
 """The per-layer metrics of the cell ``bench4096_bc.replay``
 (``benchmark/layer_metrics/``: ``bc.supersteps_per_call``,
 ``bc.step_read_share``, ``device_idle.bc``, ``b1_roofline.bc``,
-``b2_roofline.bc``), each on a synthetic context: a window of calls, one
-``bc.merge`` record a call, a traced stretch.  Each reads its value, and
-reads None unless every window call has exactly one ``bc.merge`` record
-(records dropped, a record of another name, or a program that keeps
-none)."""
+``b2_roofline.bc``, ``bc.rows_per_superstep``), each on a synthetic
+context: a window of calls, one ``bc.merge`` record a call, a traced
+stretch.  Each reads its value, and reads None unless every window call
+has exactly one ``bc.merge`` record (records dropped, a record of another
+name, or a program that keeps none)."""
 
 import os
 import sys
@@ -27,13 +27,14 @@ from benchmark.run import Context  # noqa: E402
 
 CELL = "bench4096_bc.replay"
 NAMES = ["bc.supersteps_per_call", "bc.step_read_share", "device_idle.bc",
-         "b1_roofline.bc", "b2_roofline.bc"]
+         "b1_roofline.bc", "b2_roofline.bc", "bc.rows_per_superstep"]
 
 # three calls of 3 s from t = 100 s, window open at 99.9 s; each call's
 # record starts 1 ms into it
 CALLS = [(100.0 + 3.0 * i, 100.0 + 3.0 * (i + 1)) for i in range(3)]
 T_OPEN = 99.9
 STEPS = [88, 88, 87]
+EDGE_ROWS = [5_000_000, 4_800_000, 6_100_000]
 READ = [0.2, 0.3, 0.25]
 B1 = [3.3e10, 3.4e10, 3.3e10]
 B2 = [1.2e11, 1.1e11, 1.2e11]
@@ -44,7 +45,9 @@ WANT = {"bc.supersteps_per_call": 263 / 3,
         "device_idle.bc": 1 - 2.4 / 3.2,
         # the traced stretch: the first call, B1 busy 0.27 s, B2 0.5 s
         "b1_roofline.bc": 100 * 3.3e10 / (0.27 * 3.35e12),
-        "b2_roofline.bc": 100 * 1.2e11 / (0.5 * 3.35e12)}
+        "b2_roofline.bc": 100 * 1.2e11 / (0.5 * 3.35e12),
+        "bc.rows_per_superstep": (5_000_000 / 88 + 4_800_000 / 88
+                                  + 6_100_000 / 87) / 3}
 
 
 def Record(name, t0, t1, spans, counts):
@@ -53,7 +56,7 @@ def Record(name, t0, t1, spans, counts):
                            spans=spans, counts=counts)
 
 
-def _records(skip=None, other=None):
+def _records(skip=None, other=None, rows=True):
     recs = deque(maxlen=profiling.MAX_RECORDS)
     # a set-up call and a staging before the window
     recs.append(Record("bc.stage", 90.0, 95.0, {}, {}))
@@ -65,7 +68,8 @@ def _records(skip=None, other=None):
             "merge.exact" if i == other else "bc.merge", t0 + 1e-3,
             t1 - 1e-3, {"bc.step_read": READ[i], "bc.features": 1.6},
             {"bc.supersteps": STEPS[i], "bc.scored": 3_800_000,
-             "forest_votes.bytes": B1[i], "segment_sum.bytes": B2[i]}))
+             "forest_votes.bytes": B1[i], "segment_sum.bytes": B2[i],
+             **({"bc.edge_rows": EDGE_ROWS[i]} if rows else {})}))
     return recs
 
 
@@ -119,3 +123,10 @@ def test_traced_metric_is_none_without_a_trace(name, monkeypatch):
     ctx = _context()
     ctx.trace = None
     assert _metric(name).read(ctx) is None
+
+
+def test_rows_per_superstep_is_none_without_the_count(monkeypatch):
+    """A program that does not count its edge rows (one that runs every
+    superstep on the staged edges) reads nothing."""
+    monkeypatch.setattr(profiling, "records", _records(rows=False))
+    assert _metric("bc.rows_per_superstep").read(_context()) is None

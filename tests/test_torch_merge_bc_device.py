@@ -6,7 +6,10 @@ candidate features and valid mask match (rtol 1e-12, float64 on both
 sides), and merge_order_bc_device gives identical order rows and
 probabilities within rtol 1e-9 with the linear predictor of that file and
 with a forest scorer (JAX: make_label_scorer(backend="xla", embed=True);
-port: the plain walk on the CPU).
+port: the plain walk on the CPU).  The port runs each superstep on the
+prefix of the edge arrays that holds the live edges: a superstep gives the
+same bits on any such prefix, and a whole merge the same bits as one
+that never cuts the arrays.
 """
 
 import jax
@@ -26,6 +29,7 @@ from glia_tpu.native import watershed_native
 from glia_tpu_torch.graph import merge_bc_device as mbd
 from glia_tpu_torch.graph.rag import build_rag
 from glia_tpu_torch.models.forest import ForestModel, make_label_scorer
+from glia_tpu_torch.utils import profiling
 
 
 def _cfgs(data):
@@ -150,21 +154,33 @@ def test_merge_order_linear_predictor(case, jax_linear_orders, name):
                        lambda r, c: jax_linear_orders[name], port_fn)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
-def test_merge_order_forest_scorer(case, name):
-    jrag, rag, cfgs = case
-    cfg = cfgs[name]
+def _forest(rag, cfg):
+    """A 15-tree forest trained on the initial candidates' features:
+    (glia_tpu's forest, the port's ForestModel of it)."""
     X = _port_features(rag, cfg)[0]
     rng = np.random.default_rng(2)
     y = np.where(X[:, 0] + rng.normal(0, X[:, 0].std(), len(X))
                  > np.median(X[:, 0]), 1, -1)
     jforest = train_forest(X, y, n_trees=15, seed=1)
-    fn, consts = jax_label_scorer(jforest, label=-1, backend="xla",
-                                  embed=True)
-    forest = ForestModel.from_arrays(
+    return jforest, ForestModel.from_arrays(
         jforest.feature, jforest.threshold, jforest.left, jforest.right,
         jforest.leaf_class, jforest.n_classes, jforest.max_depth,
         jforest.classes)
+
+
+@pytest.fixture(scope="module")
+def forests(case):
+    _, rag, cfgs = case
+    return {name: _forest(rag, cfgs[name]) for name in CONFIGS}
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_merge_order_forest_scorer(case, forests, name):
+    jrag, rag, cfgs = case
+    cfg = cfgs[name]
+    jforest, forest = forests[name]
+    fn, consts = jax_label_scorer(jforest, label=-1, backend="xla",
+                                  embed=True)
     _assert_same_merge(
         jrag, rag, cfg,
         lambda r, c: jmbd.merge_order_bc_device(r, c, fn,
@@ -217,3 +233,116 @@ def test_state_to_device_refuses_unsorted_edges(case):
     state_np = dict(state_np, eu=state_np["eu"][::-1].copy())
     with pytest.raises(ValueError, match="sorted by lower endpoint"):
         mbd.state_to_device(state_np, torch.device("cpu"), torch.float64)
+
+
+def _cut(state, rows):
+    return {k: v[:rows] if k in mbd.EDGE_KEYS else v
+            for k, v in state.items()}
+
+
+def _bits(t):
+    """``t`` with floats as their bit patterns (NaN equals itself)."""
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _assert_same_bits(got, want, what):
+    assert got.shape == want.shape, what
+    assert torch.equal(_bits(got), _bits(want)), what
+
+
+@pytest.mark.parametrize("cut", ["bucket", "live"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_superstep_on_a_live_prefix_gives_the_same_bits(case, forests,
+                                                        name, cut):
+    """A superstep on a state cut to the smallest capacity that holds its
+    live edges, or to exactly those, gives the superstep of the whole
+    state: the prefix of every edge array, every component array, the
+    merged rows, their probabilities and the counts."""
+    _, rag, cfgs = case
+    state_np, static = mbd.build_state(rag, cfgs[name])
+    state = mbd.state_to_device(state_np, torch.device("cpu"), torch.float64)
+    scorer = make_label_scorer(forests[name][1], label=-1, device="cpu")
+    E, n_steps = static.E, 0
+    # whole-state supersteps until the live edges fit half the capacity
+    while True:
+        state, *_, n_left, _, _, n_live = mbd.superstep(state, static,
+                                                        scorer)
+        n_steps += 1
+        n_live = int(n_live)
+        assert int(n_left) > 0 and n_steps < 10
+        if mbd._edge_capacity(E, n_live, 0) > 0 and n_steps >= 2:
+            break
+    assert not bool(state["e_alive"][n_live:].any())
+    assert bool((state["e_lo"][n_live:] == static.C).all())
+    rows = n_live
+    if cut == "bucket":
+        rows = ((E - 1) >> mbd._edge_capacity(E, n_live, 0)) + 1
+        assert n_live <= rows < E
+    full = mbd.superstep(state, static, scorer)
+    part = mbd.superstep(_cut(state, rows), static, scorer)
+    st_f, st_p = full[0], part[0]
+    ok_f, ok_p = full[3], part[3]
+    assert bool(ok_p.any()) and not bool(ok_f[rows:].any())
+    _assert_same_bits(ok_p, ok_f[:rows], "ok")
+    _assert_same_bits(part[1][ok_p], full[1][ok_f], "rows")
+    _assert_same_bits(part[2][ok_p], full[2][ok_f], "probs")
+    for i, what in zip(range(4, 8), ("n_left", "n_scored", "n_new",
+                                     "n_live")):
+        assert int(part[i]) == int(full[i]), what
+    live = int(full[7])
+    assert sorted(st_p) == sorted(st_f)
+    for k in st_f:
+        want = st_f[k][:live] if k in mbd.EDGE_KEYS else st_f[k]
+        got = st_p[k][:live] if k in mbd.EDGE_KEYS else st_p[k]
+        _assert_same_bits(got, want, k)
+
+
+@pytest.mark.parametrize("max_supersteps", [None, 5])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_merge_on_live_prefixes_gives_the_same_bits(case, forests, name,
+                                                    max_supersteps,
+                                                    monkeypatch):
+    """A whole merge, or one cut at its fifth superstep, gives the same
+    order, probabilities and merges a superstep as the same merge run on
+    every staged edge; its edge rows a superstep start at E and halve
+    while the live edges of the superstep before fit."""
+    _, rag, cfgs = case
+    scorer = make_label_scorer(forests[name][1], label=-1, device="cpu")
+    lives = []
+    real = mbd.superstep
+
+    def superstep(state, static, predict_fn):
+        out = real(state, static, predict_fn)
+        lives.append(int(out[7]))
+        return out
+
+    def run():
+        st = {}
+        order, probs = mbd.merge_order_bc_device(
+            rag, cfgs[name], scorer, max_supersteps=max_supersteps,
+            stats=st, device="cpu")
+        return order, probs, st
+
+    monkeypatch.setattr(mbd, "superstep", superstep)
+    profiling.reset()
+    order, probs, st = run()
+    counts = [r.counts for r in profiling.records if r.name == "bc.merge"]
+    live = list(lives)
+    monkeypatch.setattr(mbd, "_edge_capacity", lambda E, n_live, k: k)
+    want_order, want_probs, want = run()
+
+    E, rows = st["E"], st["edge_rows_per_superstep"]
+    assert want["edge_rows_per_superstep"] == [E] * want["n_supersteps"]
+    np.testing.assert_array_equal(order, want_order)
+    assert probs.tobytes() == want_probs.tobytes()
+    for k in ("merges_per_superstep", "n_supersteps", "n_scored", "E"):
+        assert st[k] == want[k], k
+    assert len(rows) == st["n_supersteps"] and rows[0] == E
+    assert rows[-1] < E
+    # each the smallest capacity ceil(E / 2**k), k never falling, that
+    # holds the live edges the superstep before left
+    caps = {((E - 1) >> k) + 1 for k in range((E - 1).bit_length() + 1)}
+    for i in range(1, len(rows)):
+        fit = min(c for c in caps if c >= live[i - 1])
+        assert rows[i] == min(rows[i - 1], fit)
+    assert [c["bc.edge_rows"] for c in counts] == [sum(rows)]

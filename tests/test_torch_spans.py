@@ -211,10 +211,21 @@ def test_graph_launch_tally_carries_bytes(monkeypatch):
     assert kcuda.bytes_moved == {"forest_votes": 0, "segment_sum": 0}
 
 
-@pytest.mark.parametrize("B,F,S,w", [(597140, 2, 487498, 4), (10, 1, 3, 8)])
+@pytest.mark.parametrize("B,F,S,w", [(597140, 2, 487498, 4), (10, 1, 3, 8),
+                                     (40817, 42, 487497, 4)])
 def test_segment_sum_bytes(B, F, S, w):
+    """The ids and values once, and at most one output row a row."""
     assert kcuda.segment_sum_bytes(B, F, S, w) == 8 * B + B * F * w \
-        + S * F * w
+        + min(B, S) * F * w
+
+
+@pytest.mark.parametrize("kept", [0, 7, 10])
+def test_segment_sum_bytes_of_kept_rows(kept):
+    """Rows whose ids fall outside [0, S) move only their ids."""
+    assert kcuda.segment_sum_bytes(10, 2, 4, 4, kept=kept) == 8 * 10 \
+        + kept * 2 * 4 + min(kept, 4) * 2 * 4
+    assert kcuda.segment_sum_bytes(10, 2, 4, 4, kept=10) \
+        == kcuda.segment_sum_bytes(10, 2, 4, 4)
 
 
 def test_forest_bytes():
