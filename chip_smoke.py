@@ -484,15 +484,14 @@ def phase_kernel(feats, model, seed, path="device_bc"):
     plain_ms = cuda_time_ms(lambda: forest_votes_torch(feats, tables),
                             reps=5)
     plan = kcuda.forest_plan_on(tables, B, D, feats.device)
-    # the bound: each real node read once (an inner node's feature,
-    # threshold, left and right, a leaf's feature and class), X read once,
-    # the output written once; one fp32 compare per step this data takes,
-    # a walk's steps being the depth of the leaf it ends on
-    depth, inner, leaves = node_shape(model)
+    # the bound: the bytes of ops.cuda.forest_bytes (each real node, X
+    # and the output once); one fp32 compare per step this data takes, a
+    # walk's steps being the depth of the leaf it ends on
+    depth, _, _ = node_shape(model)
     steps = torch.as_tensor(depth.reshape(-1), device=feats.device)[
         forest_leaves_torch(feats, tables)]
     gathers = int(steps.sum())
-    bytes_moved = 4 * B * D + 16 * inner + 8 * leaves + 4 * B * C
+    bytes_moved = kcuda.forest_bytes(tables, B, D)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = gathers / FP32_OPS_PER_S * 1e3
     emit({"phase": "kernel", "name": "forest_votes", "path": path,
@@ -743,9 +742,10 @@ def capture_segment_sums(fn, keep=True, first=None, outputs=None):
             outputs.append(out.clone())
         return out
 
-    # the memoized plans, last-phase counts and depth capacities go: each
-    # shape's next merge discovers again (the captured graphs stay)
-    for memo in (md._PLAN_MEMO, md._PLAN_LAST_STEPS, md._EXACT_SAL_L):
+    # the memoized plans (with their last-phase counts) and depth
+    # capacities go: each shape's next merge discovers again (the captured
+    # graphs stay)
+    for memo in (md._PLAN_MEMO, md._EXACT_SAL_L):
         memo.clear()
     for m in callers:
         m.segment_sum_auto = record

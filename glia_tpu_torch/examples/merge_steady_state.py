@@ -7,7 +7,9 @@ plan.
 
 imports ``glia_tpu_torch`` from ``--root`` (default: this checkout), so
 that one card can time two trees of the package in turns (for example a
-``git archive`` of another commit unpacked in a directory).  Cases: the
+``git archive`` of another commit unpacked in a directory; the eager
+program reads the plan memo's entries, so a tree whose entries differ is
+timed by its own copy of this script).  Cases: the
 1024^2 section of ``chip_smoke.py`` (the mean, median and median_minsize
 merges; merge_batched_device_exact) and bench.py's 4096^2 section
 (merge_batched_device_exact), all in float32; their edge arrays are kept
@@ -151,11 +153,12 @@ def eager_program(md, name, dev, walls_ms, reps, small, big):
     E, _, _, _, dmax, dt, with_vsz = key
     sal_L = (md._EXACT_SAL_L[(E, max(R - 1, 1), R, dt)]
              if name.endswith("exact") else None)
-    args = (tuple(md._PLAN_MEMO[key]), stat, R, dmax, 256, torch.float32,
-            with_vsz, md._PLAN_LAST_STEPS[key])
+    plan = md._PLAN_MEMO[key]
+    args = (tuple(plan.phases), stat, R, dmax, 256, torch.float32, with_vsz,
+            plan.last_steps)
 
     def run():
-        md._plan_program(*args, *inputs, sal_L=sal_L).scalars.tolist()
+        md._plan_program(*args, *inputs, sal_L=sal_L)[-1].tolist()
 
     w = walls_ms(run, reps + 2)[2:]
     return {"eager_program_median_ms": float(np.median(w))}

@@ -691,14 +691,13 @@ def fused_superstep(st: _FusedStatic, n_loc, u, v, payload, vstate,
 
 
 def _run_phase(st, u, v, payload, vstate, alive, any_alive, order, sal,
-               max_steps, n_m_base=0, g_of=None, n_loc=0):
+               max_steps, n_m_base=0, g_of=None):
     """Supersteps of one phase until ``max_steps``, no live edge, or no
-    merge left in the local or the global id space, from ``n_loc`` merges
-    recorded in the phase.  ``any_alive``: the host's knowledge that
-    ``alive`` has a live edge.  The one host read of a superstep is the
-    loop condition.  Returns (u, v, payload, vstate, alive, any_alive,
-    merges recorded in the phase, supersteps)."""
-    steps = 0
+    merge left in the local or the global id space.  ``any_alive``: the
+    host's knowledge that ``alive`` has a live edge.  The one host read of
+    a superstep is the loop condition.  Returns (u, v, payload, vstate,
+    alive, any_alive, merges recorded in the phase, supersteps)."""
+    steps, n_loc = 0, 0
     while (steps < max_steps and any_alive and n_loc < st.max_m
            and n_m_base + n_loc < st.max_m_glob):
         u, v, payload, vstate, alive, n_new = fused_superstep(
@@ -849,27 +848,20 @@ def _cap_quantize(x, lo=256, tile=256):
     return max(lo, ((x + step - 1) // step) * step)
 
 
-# realized multi-phase plans [(steps | None, E_cap, R_cap)] by (E, R,
-# statistic, payload layout, dmax, dtype name, vertex payload), for the life
-# of the process; a memoized plan replays without reading alive counts
+@dataclass
+class _Plan:
+    """A memoized multi-phase plan: its phases [(steps | None, E_cap,
+    R_cap)] and the most supersteps its last phase has run in any call,
+    the count a plan program runs that phase for (None until a call has
+    run the plan: the plan store keeps no count)."""
+    phases: list
+    last_steps: Optional[int] = None
+
+
+# realized multi-phase plans (_Plan) by (E, R, statistic, payload layout,
+# dmax, dtype name, vertex payload), for the life of the process; a
+# memoized plan replays without reading alive counts
 _PLAN_MEMO = {}
-# the most supersteps a memoized plan's last phase has run in any call (its
-# eager continuation included), by the same key: the count a captured
-# program runs that phase for
-_PLAN_LAST_STEPS = {}
-
-
-def _keep_last_steps(memo_key, steps):
-    """Record a memoized plan's last-phase supersteps, keeping the largest
-    count seen: data that needs one superstep more than the plan's graph
-    runs goes on eagerly once, and the next call captures a graph that
-    runs it (a guarded superstep that is not needed changes nothing).
-    A raise counts plan.last_steps_raised."""
-    old = _PLAN_LAST_STEPS.get(memo_key)
-    if old is None or steps > old:
-        _PLAN_LAST_STEPS[memo_key] = steps
-        if old is not None:
-            profiling.count("plan.last_steps_raised")
 
 
 # ---------------------------------------------------------------------------
@@ -914,7 +906,7 @@ def _plan_store_load():
     except (OSError, ValueError, TypeError, AttributeError):
         return
     for key, plan in plans.items():
-        _PLAN_MEMO.setdefault(key, plan)
+        _PLAN_MEMO.setdefault(key, _Plan(plan))
     for key, L in sal_L.items():
         _EXACT_SAL_L.setdefault(key, L)
 
@@ -927,13 +919,13 @@ def _plan_store_save():
     if path is None:
         return
     plans = {}
-    for (E, R, stat_fn, struct, dmax, dt, with_vsz), plan in \
+    for (E, R, stat_fn, struct, dmax, dt, with_vsz), entry in \
             _PLAN_MEMO.items():
         if stat_fn is not _mean_stat_packed or len(struct) != 1 \
                 or struct[0][0] != 2:
             continue
         plans[json.dumps([E, R, dmax, dt, struct[0][1], with_vsz])] = [
-            list(e) for e in plan]
+            list(e) for e in entry.phases]
     sal_L = {json.dumps(list(k)): L for k, L in _EXACT_SAL_L.items()}
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
@@ -948,23 +940,9 @@ def _plan_store_save():
 # the plan program: a memoized plan as one function of tensors
 # ---------------------------------------------------------------------------
 
-class _ProgramOut(NamedTuple):
-    """What ``_plan_program`` returns, every field a tensor (or None).
-    ``scalars``: [n_m, supersteps, overflow, a live edge left, merges of
-    the last phase, its supersteps, converged], read by the host in one
-    copy; ``state``: the last phase's (u, v, payload, vstate, alive) and
-    ``g_of`` its id table, from which an unfinished last phase goes on."""
-    order: torch.Tensor
-    sal: torch.Tensor
-    sal_exact: Optional[torch.Tensor]
-    scalars: torch.Tensor
-    state: tuple
-    g_of: Optional[torch.Tensor]
-
-
 def _plan_program(entries, stat_fn, R, dmax, max_supersteps, dtype,
                   with_vsz, last_steps, u0, v0, payload0, vstate0,
-                  sal_L=None) -> _ProgramOut:
+                  sal_L=None):
     """Every phase and transition of a memoized plan in one function of
     tensors with no host read (glia_tpu's one-program plan pipeline): each
     non-last phase runs its planned supersteps and the last one
@@ -973,10 +951,11 @@ def _plan_program(entries, stat_fn, R, dmax, max_supersteps, dtype,
     means of the order follow from the pooled-mean payload (payload0[0]
     as (sum, count) columns) by the LCA pass at depth capacity ``sal_L``.
     On a CUDA device this is what a plan graph captures; on the CPU it
-    runs as it is."""
+    runs as it is.  Returns (order rows, saliencies, the exact ones with
+    ``sal_L``, scalars [n_m, supersteps, overflow, a live edge left,
+    supersteps of the last phase, converged] for the host's one read)."""
     dev = u0.device
-    max_m = max(R - 1, 1)
-    order, sal = _order_buffers(max_m, dtype, dev)
+    order, sal = _order_buffers(max(R - 1, 1), dtype, dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     alive = torch.ones(entries[0][1], dtype=torch.bool, device=dev)
@@ -991,28 +970,23 @@ def _plan_program(entries, stat_fn, R, dmax, max_supersteps, dtype,
             steps = max_supersteps
         st = _phase_static(stat_fn, E_cap, R_cap, R, dmax, with_vsz)
         # the first phase maps by the identity, as glia_tpu's pipeline
-        g_phase = None if pi == 0 else g_of
-        base = n_base
         u, v, payload, vstate, alive, n_loc, done = _run_phase_fixed(
-            st, u, v, payload, vstate, alive, order, sal, steps, base,
-            g_phase)
+            st, u, v, payload, vstate, alive, order, sal, steps, n_base,
+            None if pi == 0 else g_of)
         total = total + done
-        n_base = base + n_loc
         if not last:
             u, v, payload, vstate, alive, g_of, o = _phase_transition(
-                u, v, payload, vstate, alive, g_of, base, R_cap, R,
+                u, v, payload, vstate, alive, g_of, n_base, R_cap, R,
                 *entries[pi + 1][1:])
             ovf = ovf | o
-    sal_exact, conv = None, torch.ones((), dtype=torch.bool, device=dev)
+        n_base = n_base + n_loc
+    conv = torch.ones((), dtype=torch.bool, device=dev)
     if sal_L is not None:
-        (sc,) = payload0
-        ex, conv = _exact_saliency_pass(u0, v0, sc[:, 0], sc[:, 1],
-                                        order[:max_m], R, sal_L)
-        sal_exact = torch.where(torch.isnan(ex), sal[:max_m], -ex)
+        sal, conv = _exact_tail(u0, v0, *payload0[0].unbind(1), order, sal,
+                                R, sal_L)
     scalars = torch.stack([n_base, total, ovf.long(), alive.any().long(),
-                           n_loc, done, conv.long()])
-    return _ProgramOut(order, sal, sal_exact, scalars,
-                       (u, v, payload, vstate, alive), g_phase)
+                           done, conv.long()])
+    return order, sal, scalars
 
 
 def _flat(inputs):
@@ -1054,7 +1028,7 @@ class _PlanGraph:
         self.launches = tally
         self.replays = 0
 
-    def replay(self, inputs) -> _ProgramOut:
+    def replay(self, inputs):
         from ..ops import cuda as kcuda
 
         with profiling.span("merge.graph_inputs"):
@@ -1089,99 +1063,64 @@ def plan_graph_info():
 
 class _PlanRun(NamedTuple):
     order: torch.Tensor        # [max_m + 1, 3]
-    sal: torch.Tensor          # [max_m + 1]
-    sal_exact: Optional[torch.Tensor]
+    sal: torch.Tensor          # [max_m + 1]; exact ones [max_m] with sal_L
     n_m: int
     steps: int
-    bad: bool                  # overflow, or a live edge left
-    conv: bool
+    bad: bool                  # overflow, a live edge left, not converged
     last_steps: int            # supersteps of the last phase
     graph: bool                # replayed from a CUDA graph
-    eager_steps: int           # supersteps of the eager continuation
 
 
-def _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
-              inputs, last_steps=None, sal_L=None):
-    """Run a plan: the plan program, then one batched read of its
-    scalars.  On a CUDA device, with the last phase's superstep count
-    known (a memoized plan's), the program is a captured CUDA graph
-    (captured at the first such call, and again in place of the plan's
-    graph when the count has changed); otherwise it runs eagerly, its
-    last phase for ``last_steps`` (0 when unknown).  A last phase with a
-    live edge after those supersteps goes on eagerly from the program's
-    state, up to ``max_supersteps`` (the same supersteps, so the same
-    rows); the exact saliencies are then taken again on the finished
-    order.  Spans: merge.graph_inputs and merge.graph_launch (a replay),
-    merge.scalar_wait (the host waiting for the program's scalars),
-    merge.output_clone, merge.eager_tail (the continuation, whose
-    supersteps count as merge.eager_supersteps); plan.graph_capture
-    counts a new graph."""
-    u0, v0, payload0, vstate0 = inputs
-    dev = u0.device
-    max_m = max(R - 1, 1)
-    use_graph = dev.type == "cuda" and last_steps is not None
-    K = last_steps or 0
-    args = (tuple(entries), stat_fn, R, dmax, max_supersteps, dtype,
-            with_vsz, K)
+def _run_plan(entry, stat_fn, R, dmax, max_supersteps, dtype, with_vsz,
+              inputs, sal_L=None):
+    """Run a memoized plan (a ``_Plan`` with a last-phase count) as its
+    plan program, then one batched read of its scalars: on a CUDA device a
+    CUDA graph, captured again in place of the plan's graph when the count
+    has changed.  None where the last phase ends with a live edge, fewer
+    than ``max_supersteps`` run and no overflow: the caller reruns the plan
+    eagerly.  Spans: merge.graph_inputs, merge.graph_launch,
+    merge.scalar_wait, merge.output_clone; count plan.graph_capture."""
+    dev = inputs[0].device
+    use_graph = dev.type == "cuda"
+    phases, K = tuple(entry.phases), entry.last_steps
+    args = (phases, stat_fn, R, dmax, max_supersteps, dtype, with_vsz, K)
     if use_graph:
         # the packing setting is part of the key, as it is of glia_tpu's
         # program keys: a graph captured packed never replays unpacked
         pack64 = _pack64_enabled()
-        key = (args[0], stat_fn, R, dmax, max_supersteps,
+        key = (phases, stat_fn, R, dmax, max_supersteps,
                _dtype_name(dtype), with_vsz,
                tuple(tuple(t.shape) for t in _flat(inputs)), sal_L,
                str(dev), pack64)
         g = _PLAN_GRAPHS.get(key)
-        if g is not None and g.info["last_steps"] != K:
-            # the superseded graph and its memory pool go before the new
+        if g is None or g.info["last_steps"] != K:
+            # a superseded graph and its memory pool go before the new
             # capture takes a pool
-            del _PLAN_GRAPHS[key]
-            g = None
-        if g is None:
-            info = {"E": entries[0][1], "R": R, "phases": len(entries),
+            _PLAN_GRAPHS.pop(key, None)
+            info = {"E": phases[0][1], "R": R, "phases": len(phases),
                     "last_steps": K, "sal_L": sal_L,
                     "dtype": _dtype_name(dtype), "pack64": pack64}
             profiling.count("plan.graph_capture")
             g = _PLAN_GRAPHS[key] = _PlanGraph(
                 lambda *xs: _plan_program(*args, *xs, sal_L=sal_L), inputs,
                 info)
-        out = g.replay(inputs)
+        order, sal, scalars = g.replay(inputs)
     else:
-        out = _plan_program(*args, u0, v0, payload0, vstate0, sal_L=sal_L)
+        order, sal, scalars = _plan_program(*args, *inputs, sal_L=sal_L)
     with profiling.span("merge.scalar_wait"):
-        n_m, steps, ovf, any_alive, n_loc, done, conv = out.scalars.tolist()
-    order, sal, sal_exact = out.order, out.sal, out.sal_exact
+        n_m, steps, ovf, any_alive, done, conv = scalars.tolist()
+    if any_alive and not ovf and done < max_supersteps:
+        return None
     if use_graph:
         # the graph's outputs belong to its next replay
         with profiling.span("merge.output_clone"):
             order, sal = order.clone(), sal.clone()
-            sal_exact = None if sal_exact is None else sal_exact.clone()
-    more = 0
-    if any_alive and done < max_supersteps:
-        with profiling.span("merge.eager_tail"):
-            st = _phase_static(stat_fn, entries[-1][1], entries[-1][2], R,
-                               dmax, with_vsz)
-            base = n_m - n_loc
-            u, v, payload, vstate, alive = out.state
-            *_, any_alive, n_loc, more = _run_phase(
-                st, u, v, payload, vstate, alive, True, order, sal,
-                max_supersteps - done, n_m_base=base, g_of=out.g_of,
-                n_loc=n_loc)
-            n_m, steps, done = base + n_loc, steps + more, done + more
-            if sal_L is not None:
-                (sc,) = payload0
-                ex, conv_t = _exact_saliency_pass(u0, v0, sc[:, 0], sc[:, 1],
-                                                  order[:max_m], R, sal_L)
-                sal_exact = torch.where(torch.isnan(ex), sal[:max_m], -ex)
-                conv = bool(conv_t)
-        profiling.count("merge.eager_supersteps", more)
-    return _PlanRun(order, sal, sal_exact, n_m, steps,
-                    bool(ovf or any_alive), bool(conv), done, use_graph,
-                    more)
+    return _PlanRun(order, sal, n_m, steps,
+                    bool(ovf or any_alive or not conv), done, use_graph)
 
 
 def _run_phases(stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs,
-                entries=None, debug=None):
+                entries=None, sal_L=None, debug=None):
     """The multi-phase merge run eagerly, phase by phase.
 
     ``entries=None`` is the adaptive first run on a shape: 1-step phases
@@ -1192,15 +1131,22 @@ def _run_phases(stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs,
     capacity the quantized min(2 * alive, current).  A frontier that does
     not shrink makes the next phase the last, at the same capacities and
     without a transition.  Given ``entries`` (a plan), each phase runs its
-    planned supersteps at its capacities, the last to completion.
+    planned supersteps at its capacities, the last to completion; with
+    ``sal_L`` the exact saliencies at that depth capacity follow, as in
+    the plan program.
 
     ``debug`` (a stats dict, GLIA_MERGE_DEBUG): the device is synchronized
-    around each phase and transition, and the lists of DEBUG_KEYS get
-    each phase's wall and supersteps and each transition's wall and the
-    alive count after it.
+    around each phase and transition, and the lists of DEBUG_KEYS, emptied
+    first, get each phase's wall and supersteps and each transition's wall
+    and the alive count after it.
 
     Returns (a _PlanRun whose ``last_steps`` is the last phase's
     supersteps, the realized plan)."""
+    if debug is not None:
+        # the lists would otherwise run on across the calls of a caller
+        # that passes one dict to each
+        for k in DEBUG_KEYS:
+            debug.pop(k, None)
     u_d, v_d, payload_d, vstate = inputs
     E = u_d.shape[0]
     device = u_d.device
@@ -1275,9 +1221,79 @@ def _run_phases(stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs,
                 int(alive.sum()))
         E_cur, R_cur = E2, R2_cap
         pi += 1
-    bad = bool(ovf_any | alive.any())
-    return _PlanRun(order, sal, None, n_base, total_steps, bad, True, done,
-                    False, 0), realized
+    conv = True
+    if sal_L is not None:
+        sal, conv = _exact_tail(*inputs[:2], *inputs[2][0].unbind(1), order,
+                                sal, R, sal_L)
+    bad = bool(ovf_any | alive.any()) or not bool(conv)
+    run = _PlanRun(order, sal, n_base, total_steps, bad, done, False)
+    return run, realized
+
+
+def _plan_call(stat_fn, R, dmax, max_supersteps, dtype, inputs, st,
+               plan=None, exact=False, debug=None):
+    """One multi-phase merge of ``inputs`` (``_initial_state``) on a plan:
+    the one owner of the plan memo.  The plan is ``plan`` (explicit phases)
+    or the memoized one (plan.memo_hit; a miss, plan.memo_miss, discovers
+    it); ``exact`` needs the memoized depth capacity too and returns None
+    uncounted without both.  A memoized plan with a last-phase count runs
+    as its program; any other, or one whose program ran short, runs
+    eagerly (span merge.eager_tail).  A failed run drops the plan (and the
+    depth capacity), counts plan.fallback and returns None.  Otherwise the
+    memo keeps the largest last-phase count seen, ``st`` gets the
+    counters, and (order, saliencies, n_merges) are returned."""
+    E, name, with_vsz = len(inputs[0]), _dtype_name(dtype), bool(inputs[3])
+    memo_key = (E, R, stat_fn,
+                tuple((p.ndim, _dtype_name(p.dtype)) for p in inputs[2]),
+                dmax, name, with_vsz)
+    sal_key = (E, max(R - 1, 1), R, name)
+    _plan_store_load()
+    entry = _PLAN_MEMO.get(memo_key) if plan is None else _Plan(plan)
+    sal_L = _EXACT_SAL_L.get(sal_key) if exact else None
+    if exact and (entry is None or sal_L is None):
+        return None
+    if plan is None:
+        profiling.count("plan.memo_miss" if entry is None
+                        else "plan.memo_hit")
+    args = (stat_fn, R, dmax, max_supersteps, dtype, with_vsz, inputs)
+    run = None
+    if entry is None:
+        run, phases = _run_phases(*args, debug=debug)
+    elif entry.last_steps is not None and debug is None:
+        run = _run_plan(entry, *args, sal_L)
+    eager = run is None
+    if eager:
+        with profiling.span("merge.eager_tail"):
+            run, _ = _run_phases(*args, entries=entry.phases, sal_L=sal_L,
+                                 debug=debug)
+        profiling.count("merge.eager_supersteps", run.steps)
+    if run.bad:
+        # the plan is too tight for this data: the next call measures again
+        _PLAN_MEMO.pop(memo_key, None)
+        if exact:
+            _EXACT_SAL_L.pop(sal_key, None)
+        st["fallback"] = True
+        profiling.count("plan.fallback")
+        return None
+    replayed = plan is None and entry is not None
+    if entry is None:
+        entry = _PLAN_MEMO[memo_key] = _Plan(phases, run.last_steps)
+        _plan_store_save()
+    elif replayed and (entry.last_steps is None
+                       or run.last_steps > entry.last_steps):
+        # data that needs more last-phase supersteps than the plan's graph
+        # runs was rerun eagerly once: the next call captures a graph that
+        # runs them (a guarded superstep that is not needed changes nothing)
+        if entry.last_steps is not None:
+            profiling.count("plan.last_steps_raised")
+        entry.last_steps = run.last_steps
+    st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in entry.phases],
+              fallback=False, plan_replayed=replayed, plan_graph=run.graph,
+              eager_supersteps=run.steps if eager else 0)
+    if exact:
+        st["sal_L"] = sal_L
+    max_m = max(R - 1, 1)
+    return run.order[:max_m], run.sal[:max_m], run.n_m
 
 
 def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
@@ -1295,77 +1311,40 @@ def _fused_multiphase_core(u, v, payload, stat_fn, n_regions,
     mean's plans, in the plan store when there is one).  Later calls run
     the memoized plan as one program (``_run_plan``; on a CUDA device a
     captured CUDA graph), its last phase for the most supersteps a call
-    of the plan has needed (``_keep_last_steps``):
-    ``stats["plan_replayed"]``, and ``stats["plan_graph"]`` when it came
-    from a graph.  Another graph of the same shape may replay the plan
-    too, at the cost of at most one fallback.  An explicit plan is a list
-    of (steps, edge_cap, vert_cap), caps as fractions of E / R (<= 1.0)
-    or absolute rows, run eagerly; its last entry runs to completion.  A
-    capacity overflow or an unfinished frontier falls back to the
-    single-phase engine and drops the memo entry (``stats["fallback"]``).
+    of the plan has needed: ``stats["plan_replayed"]``, and
+    ``stats["plan_graph"]`` when it came from a graph.  Another graph of
+    the same shape may replay the plan too, at the cost of at most one
+    fallback.  An explicit plan is a list of (steps, edge_cap, vert_cap),
+    caps as fractions of E / R (<= 1.0) or absolute rows, run eagerly; its
+    last entry runs to completion.  A capacity overflow or an unfinished
+    frontier falls back to the single-phase engine and drops the memo
+    entry (``stats["fallback"]``); ``_plan_call`` owns the memo.
 
-    Under GLIA_MERGE_DEBUG with a ``stats`` dict, its DEBUG_KEYS lists
-    are cleared, and every plan, a memoized one too, runs phase by phase
-    (``_run_phases``), recording them; the rows are the same.
+    Under GLIA_MERGE_DEBUG with a ``stats`` dict, every plan, a memoized
+    one too, runs phase by phase (``_run_phases``), recording its
+    DEBUG_KEYS lists; the rows are the same.
     """
     E = len(u)
     R = int(n_regions)
-    max_m = max(R - 1, 1)
-    with_vsz = vsizes is not None
     inputs = _initial_state(u, v, payload, vsizes, R, dtype, device)
-    struct = tuple((p.ndim, _dtype_name(p.dtype)) for p in inputs[2])
-    memo_key = (E, R, stat_fn, struct, dmax, _dtype_name(dtype), with_vsz)
-    debug = _merge_debug(stats)
-    if debug:
-        # the lists would otherwise run on across the calls of a caller
-        # that passes one dict to each
-        for k in DEBUG_KEYS:
-            stats.pop(k, None)
+    debug = stats if _merge_debug(stats) else None
     st = stats if stats is not None else {}
-    discovered = False
+    phases = None
     if plan is not None:
-        entries = []
+        phases = []
         for i, (steps, ef, vf) in enumerate(plan):
             Ei = E if i == 0 else _tile_ceil(E * ef if ef <= 1.0 else ef)
             Ri = R if i == 0 else _tile_ceil(R * vf if vf <= 1.0 else vf,
                                              lo=128, tile=128)
-            entries.append((steps, Ei, Ri))
-    else:
-        _plan_store_load()
-        entries = _PLAN_MEMO.get(memo_key)
-        discovered = entries is None
-        profiling.count("plan.memo_miss" if discovered else "plan.memo_hit")
-    if discovered or debug:
-        run, realized = _run_phases(stat_fn, R, dmax, max_supersteps, dtype,
-                                    with_vsz, inputs, entries=entries,
-                                    debug=stats if debug else None)
-        entries = entries or realized
-    else:
-        # an explicit plan runs eagerly (no known last-phase count)
-        run = _run_plan(entries, stat_fn, R, dmax, max_supersteps, dtype,
-                        with_vsz, inputs,
-                        last_steps=None if plan is not None
-                        else _PLAN_LAST_STEPS.get(memo_key))
-    if run.bad:
-        # capacity plan too tight for this RAG: the single-phase engine
-        # (slower, never wrong); drop a stale memo so the next call
-        # measures again
-        _PLAN_MEMO.pop(memo_key, None)
-        _PLAN_LAST_STEPS.pop(memo_key, None)
-        st["fallback"] = True
-        profiling.count("plan.fallback")
+            phases.append((steps, Ei, Ri))
+    out = _plan_call(stat_fn, R, dmax, max_supersteps, dtype, inputs, st,
+                     plan=phases, debug=debug)
+    if out is None:
+        # the single-phase engine: slower, never wrong
         return _fused_merge_core(u, v, payload, stat_fn, n_regions,
                                  max_supersteps, dtype, device, dmax=dmax,
                                  stats=st, vsizes=vsizes)
-    if discovered:
-        _PLAN_MEMO[memo_key] = entries
-        _plan_store_save()
-    if plan is None:
-        _keep_last_steps(memo_key, run.last_steps)
-    st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in entries],
-              fallback=False, plan_replayed=plan is None and not discovered,
-              plan_graph=run.graph, eager_supersteps=run.eager_steps)
-    return run.order[:max_m], run.sal[:max_m], run.n_m
+    return out
 
 
 MODES = ("fused", "fused_ms", "chunked")
@@ -1538,6 +1517,22 @@ def _exact_saliency_pass(u, v, s, c, order, R, L):
     return _pooled_stat(s_tot, c_tot, r2, ok_row), converged
 
 
+def _exact_tail(u, v, s, c, order, sal, R, L, stats=None):
+    """A pooled-mean merge's saliencies with the exact merge-time pooled
+    means (-stat) wherever defined: the LCA pass over ``order`` at depth
+    capacity ``L``, or with ``L`` None at the one that converges
+    (``exact_saliency_device``).  Returns (saliencies [max_m], converged)."""
+    max_m = max(R - 1, 1)
+    if L is None:
+        conv = True
+        stat = exact_saliency_device(u, v, s, c, order[:max_m], R,
+                                     dtype=s.dtype, device=s.device,
+                                     stats=stats)
+    else:
+        stat, conv = _exact_saliency_pass(u, v, s, c, order[:max_m], R, L)
+    return torch.where(torch.isnan(stat), sal[:max_m], -stat), conv
+
+
 def exact_saliency_device(u, v, s, c, order, n_regions,
                           dtype: Optional[torch.dtype] = None,
                           device: DeviceLike = None, stats=None):
@@ -1613,9 +1608,8 @@ def _merge_exact(u, v, s, c, n_regions, mode, dmax, max_supersteps, dt,
             device=dev)
         synchronize(dev)
     with profiling.span("merge.exact_saliency") as exact:
-        ex = exact_saliency_device(u_d, v_d, s_d, c_d, order, n_regions,
-                                   dtype=dt, device=dev, stats=st)
-        sal = torch.where(torch.isnan(ex), sal, -ex)
+        sal, _ = _exact_tail(u_d, v_d, s_d, c_d, order, sal, int(n_regions),
+                             None, stats=st)
         synchronize(dev)
     st["t_merge_loop"] = loop.seconds
     st["t_exact_saliency"] = exact.seconds
@@ -1648,64 +1642,30 @@ def merge_batched_device_exact(u, v, s, c, n_regions, dmax=4,
     t_exact_saliency), on the one-program path the call's
     (t_plan_program), where the two stages are not apart.
 
-    Each call is the span merge.exact; on the one-program path it holds
-    merge.stage_inputs and ``_run_plan``'s spans, and counts
-    plan.memo_hit (plan.memo_miss and merge.discovery otherwise,
-    plan.fallback where the plan failed)."""
+    Each call is the span merge.exact, holding merge.stage_inputs; on the
+    one-program path it holds ``_run_plan``'s spans (merge.eager_tail
+    where the plan is rerun eagerly) and counts plan.memo_hit
+    (plan.memo_miss and merge.discovery otherwise, plan.fallback where the
+    plan failed)."""
     dev = resolve_device(device)
     dt = default_dtype(dev, dtype)
     st = stats if stats is not None else {}
     with profiling.span("merge.exact") as call:
-        out, one_program = _merge_exact_call(u, v, s, c, n_regions, dmax,
-                                             max_supersteps, dt, stats, dev)
-    if one_program:
-        st["t_plan_program"] = call.seconds
+        with profiling.span("merge.stage_inputs"):
+            sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)],
+                             dim=1)
+            inputs = (_as_index(u, dev), _as_index(v, dev), (sc,), ())
+        out = _plan_call(_mean_stat_packed, int(n_regions), dmax,
+                         max_supersteps, dt, inputs, st, exact=True)
+        if out is None:
+            # no plan or depth capacity memoized, or the plan failed on
+            # this data (both dropped): discover
+            with profiling.span("merge.discovery"):
+                return _merge_exact(*inputs[:2], *sc.unbind(1), n_regions,
+                                    "fused_ms", dmax, max_supersteps, dt,
+                                    stats, dev)
+    st["t_plan_program"] = call.seconds
     return out
-
-
-def _merge_exact_call(u, v, s, c, n_regions, dmax, max_supersteps, dt, stats,
-                      dev):
-    """merge_batched_device_exact's body: ((order, saliencies, n_merges),
-    whether the one program ran)."""
-    st = stats if stats is not None else {}
-    E = len(u)
-    R = int(n_regions)
-    max_m = max(R - 1, 1)
-    name = _dtype_name(dt)
-    memo_key = (E, R, _mean_stat_packed, ((2, name),), dmax, name, False)
-    sal_key = (E, max_m, R, name)
-    _plan_store_load()
-    plan = _PLAN_MEMO.get(memo_key)
-    L = _EXACT_SAL_L.get(sal_key)
-    if plan is None or L is None:
-        # the multi-phase engine counts its own plan lookup
-        with profiling.span("merge.discovery"):
-            return _merge_exact(u, v, s, c, R, "fused_ms", dmax,
-                                max_supersteps, dt, stats, dev), False
-    profiling.count("plan.memo_hit")
-    with profiling.span("merge.stage_inputs"):
-        sc = torch.stack([_as_float(s, dev, dt), _as_float(c, dev, dt)],
-                         dim=1)
-        inputs = (_as_index(u, dev), _as_index(v, dev), (sc,), ())
-    run = _run_plan(plan, _mean_stat_packed, R, dmax, max_supersteps, dt,
-                    False, inputs, last_steps=_PLAN_LAST_STEPS.get(memo_key),
-                    sal_L=L)
-    if run.bad or not run.conv:
-        # the plan overflowed or the depth capacity is too small for this
-        # data: drop both memos and discover
-        _PLAN_MEMO.pop(memo_key, None)
-        _PLAN_LAST_STEPS.pop(memo_key, None)
-        _EXACT_SAL_L.pop(sal_key, None)
-        st["fallback"] = True
-        profiling.count("plan.fallback")
-        return merge_batched_device_exact(
-            u, v, s, c, n_regions, dmax=dmax, max_supersteps=max_supersteps,
-            dtype=dt, stats=stats, device=dev), False
-    _keep_last_steps(memo_key, run.last_steps)
-    st.update(n_supersteps=run.steps, buckets=[e for _, e, _ in plan],
-              fallback=False, plan_replayed=True, plan_graph=run.graph,
-              sal_L=L, eager_supersteps=run.eager_steps)
-    return (run.order[:max_m], run.sal_exact, run.n_m), True
 
 
 # ---------------------------------------------------------------------------

@@ -316,7 +316,7 @@ def test_merge_batched_device_exact_default_matches(bench512):
     the discovery path, whose two stages are timed apart."""
     data, rag = bench512
     u, v, s, c = jm.edge_mean_arrays(rag, data["pb"])
-    for memo in (tm._PLAN_MEMO, tm._PLAN_LAST_STEPS, tm._EXACT_SAL_L):
+    for memo in (tm._PLAN_MEMO, tm._EXACT_SAL_L):
         memo.clear()
     want = jm.merge_batched_device_exact(u, v, s, c, rag.n_regions)
     st = {}

@@ -2,7 +2,8 @@
 glia_tpu on the CPU (float64 on both sides, glia_tpu in x64).
 
 - GLIA_MERGE_DEBUG: with a ``stats`` dict, a fused_ms call runs its
-  phases one by one, memoized plan too, and records ``phase_s``,
+  phases one by one, memoized plan too (the eager plan runner, whose
+  supersteps are the call's ``eager_supersteps``), and records ``phase_s``,
   ``phase_steps``, ``trans_s`` and ``alive_at_transition``.  The
   supersteps and alive counts equal glia_tpu's, list for list, on a
   discovery call and on a memoized one; the rows equal glia_tpu's and
@@ -39,7 +40,6 @@ def case(request):
 def _clear_memos():
     jmd._PLAN_MEMO.clear()
     md._PLAN_MEMO.clear()
-    md._PLAN_LAST_STEPS.clear()
     md._EXACT_SAL_L.clear()
 
 
@@ -76,6 +76,9 @@ def test_debug_lists_match_glia_tpu(case, monkeypatch):
         ref = _glia(case, jst)
         assert st["plan_replayed"] is (call == "memoized"), call
         assert st["plan_graph"] is False
+        # a memoized plan under the switch is the eager plan runner's
+        assert st["eager_supersteps"] == (
+            st["n_supersteps"] if call == "memoized" else 0)
         for k in ("phase_steps", "alive_at_transition"):
             assert st.get(k) == jst.get(k), (call, k, st, jst)
         _lists_agree(st)

@@ -302,10 +302,10 @@ def test_one_dispatch_merge_exact_on_card():
 
 def test_raised_last_steps_recaptures_the_plan_graph_on_card():
     """A memoized count one superstep short: the next call replays the
-    short graph and finishes the last phase eagerly, raising the count;
-    the call after it captures the plan's graph again, for the raised
-    count, in place of the short one, and runs every superstep in it
-    with the eager call's rows and saliencies."""
+    short graph, finds a live edge left and reruns the plan eagerly,
+    raising the count; the call after it captures the plan's graph again,
+    for the raised count, in place of the short one, and runs every
+    superstep in it with the eager call's rows and saliencies."""
     from glia_tpu_torch.graph import merge_device as md
 
     data, seg, rag = _section(160, 70, 9)
@@ -322,13 +322,15 @@ def test_raised_last_steps_recaptures_the_plan_graph_on_card():
     assert st0["plan_graph"] is True
     key = (len(u), R, md._mean_stat_packed, ((2, "float32"),), 4,
            "float32", False)
-    K = md._PLAN_LAST_STEPS[key]
-    md._PLAN_LAST_STEPS[key] = K - 1
+    entry = md._PLAN_MEMO[key]
+    K = entry.last_steps
+    entry.last_steps = K - 1
     st1, st2 = {}, {}
     o1, s1, n1 = call(st1)
     o2, s2, n2 = call(st2)
-    assert st1["plan_graph"] is True and st1["eager_supersteps"] == 1
-    assert md._PLAN_LAST_STEPS[key] == K
+    assert st1["plan_graph"] is False
+    assert st1["eager_supersteps"] == st1["n_supersteps"]
+    assert entry.last_steps == K
     assert st2["plan_graph"] is True and st2["eager_supersteps"] == 0
     assert st2["n_supersteps"] == st1["n_supersteps"] == st0["n_supersteps"]
     graphs = [g for g in md.plan_graph_info()

@@ -196,7 +196,7 @@ def test_hmt_segment_device_matches_glia_tpu_steps(device_case, backend):
     s, jmodel, model = device_case
     want_seg, want = _glia_tpu_device_steps(
         s, jmodel, "np" if backend == "np" else "jax")
-    for memo in (tmd._PLAN_MEMO, tmd._PLAN_LAST_STEPS, tmd._EXACT_SAL_L):
+    for memo in (tmd._PLAN_MEMO, tmd._EXACT_SAL_L):
         memo.clear()
     stats = {}
     got_seg, got = tp.hmt_segment(s["pb"], s["intensity"], model,

@@ -6,17 +6,21 @@ phases), as tests/test_torch_merge_engines.py makes them.  Both sides run
 on the CPU in float64, glia_tpu jitted as it runs itself; every test
 starts from empty plan memos in both packages.  A second call on a shape
 takes glia_tpu's one-jit pipeline and the port's plan program (eager on
-the CPU: the code a CUDA graph captures on the card).  Required: equal
-rows, saliencies at rtol 1e-12, equal superstep counts, buckets and
-fallback flags; after a lowered last-phase count (the port then finishes
-the last phase eagerly once, raises the count back and runs the next call
-in the program), with a count above the need (the same bits), an
-injected too-tight plan (both fall back and
-drop it) and through the plan store (equal plans and depth capacities,
-key for key; a fresh load replays; a corrupt store rediscovers).
+the CPU: the code a CUDA graph captures on the card).  glia_tpu's two
+calls on each (section, policy) run once for the module, from empty
+memos, in threads (``_GLIA_WAVES``), and every test that compares with
+them shares them; the port runs on one CPU thread.  Required:
+equal rows, saliencies at rtol 1e-12, equal superstep counts, buckets and
+fallback flags; after a lowered last-phase count (the port then reruns
+the plan eagerly once, raises the count back and runs the next call in
+the program), with a count above the need (the same bits), an injected
+too-tight plan (both fall back and drop it) and through the plan store
+(equal plans and depth capacities, key for key; a fresh load replays; a
+corrupt store rediscovers).
 """
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -59,28 +63,79 @@ def _bench_case(side):
     return data, build_rag(seg, contour_only=False)
 
 
+@pytest.fixture(scope="module")
+def sections():
+    """The sections by side, each made once for the module."""
+    return {side: _bench_case(side) for side in (512, 768)}
+
+
 @pytest.fixture(scope="module", params=[512, 768], ids=["2_phases",
                                                         "3_phases"])
-def bench(request):
-    return request.param, _bench_case(request.param)
+def bench(request, sections):
+    return request.param, sections[request.param]
 
 
 @pytest.fixture(scope="module")
-def bench512():
-    return _bench_case(512)
+def bench512(sections):
+    return sections[512]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's calls here are many small CPU ops, which stall on a
+    thread pool shared with other busy processes (a lowered-count case:
+    0.2 s alone, 10 s beside eight busy cores): this module runs them on
+    one thread, and gives the thread count back after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _glia_memos_emptied(mp):
+    """glia_tpu's plan memos empty and its store unread, on ``mp``."""
+    mp.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    mp.setattr(jm, "_PLAN_MEMO", {})
+    mp.setattr(jm, "_EXACT_SAL_L", {})
+    mp.setattr(jm, "_PLAN_STORE_LOADED", [True])
 
 
 @pytest.fixture
 def fresh(monkeypatch):
     """Empty plan memos in both packages, and neither reads a store."""
-    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
-    monkeypatch.setattr(jm, "_PLAN_MEMO", {})
-    monkeypatch.setattr(jm, "_EXACT_SAL_L", {})
-    monkeypatch.setattr(jm, "_PLAN_STORE_LOADED", [True])
-    for name in ("_PLAN_MEMO", "_PLAN_LAST_STEPS", "_EXACT_SAL_L"):
+    _glia_memos_emptied(monkeypatch)
+    for name in ("_PLAN_MEMO", "_EXACT_SAL_L"):
         monkeypatch.setattr(tm, name, {})
     monkeypatch.setattr(tm, "_PLAN_STORE_LOADED", [None])
     monkeypatch.setattr(tcache, "_store_dir", [None])
+
+
+# glia_tpu's calls for the module in two waves, the calls of a wave in
+# threads so that their jit compiles (most of this file's time) overlap.
+# Each wave starts from empty memos; no two calls of a wave share a plan
+# memo key (the exact flow's plan is the mean's of its side) or a
+# statistic closure that glia_tpu makes on its first use
+_GLIA_WAVES = ([(512, p) for p in POLICIES] + [(768, "exact")],
+               [(768, p) for p in POLICIES] + [(512, "exact")])
+
+
+@pytest.fixture(scope="module")
+def glia(sections):
+    """``glia(side, what)``: glia_tpu's two calls on the section of
+    ``side`` from empty memos (what = a policy's fused_ms merge, or
+    "exact" for merge_batched_device_exact), as ``_two_calls`` returns
+    them; each (side, what) runs once for the module."""
+    def calls(side_what):
+        side, what = side_what
+        run = _runner(what, *sections[side])
+        return _two_calls(lambda st: run(jm, st))
+
+    done = {}
+    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(4) as pool:
+        for wave in _GLIA_WAVES:
+            _glia_memos_emptied(mp)
+            done.update(zip(wave, pool.map(calls, wave)))
+    return lambda side, what: done[side, what]
 
 
 def _policy_run(mod, policy, data, rag, **kw):
@@ -109,12 +164,11 @@ def _two_calls(run):
 
 
 @pytest.mark.parametrize("policy", POLICIES)
-def test_steady_state_matches_glia_tpu_pipeline(bench, policy, fresh):
+def test_steady_state_matches_glia_tpu_pipeline(bench, policy, fresh, glia):
     """glia_tpu's second call (its one-jit pipeline) against the port's
     second call (its plan program), and both against their first calls."""
     side, (data, rag) = bench
-    want1, sw1, want, sw = _two_calls(lambda st: _policy_run(
-        jm, policy, data, rag, mode="fused_ms", stats=st))
+    want1, sw1, want, sw = glia(side, policy)
     got1, sg1, got, sg = _two_calls(lambda st: _policy_run(
         tm, policy, data, rag, mode="fused_ms", stats=st, device="cpu"))
     assert sg1["plan_replayed"] is False and sg["plan_replayed"] is True
@@ -125,12 +179,11 @@ def test_steady_state_matches_glia_tpu_pipeline(bench, policy, fresh):
     _assert_same_run(got, got1, sg, sg1)
 
 
-def test_exact_steady_state_matches_glia_tpu_pipeline(bench, fresh):
+def test_exact_steady_state_matches_glia_tpu_pipeline(bench, fresh, glia):
     """merge_batched_device_exact: the second call is merge and exact
     saliencies as one program on both sides."""
     side, (data, rag) = bench
-    want1, sw1, want, sw = _two_calls(lambda st: _exact_run(
-        jm, data, rag, stats=st))
+    want1, sw1, want, sw = glia(side, "exact")
     got1, sg1, got, sg = _two_calls(lambda st: _exact_run(
         tm, data, rag, stats=st, device="cpu"))
     assert {"t_merge_loop", "t_exact_saliency"} <= set(sg1)
@@ -139,11 +192,6 @@ def test_exact_steady_state_matches_glia_tpu_pipeline(bench, fresh):
     _assert_same_run(got, want, sg, sw)
     _assert_same_run(got1, want1)
     _assert_same_run(got, got1)
-
-
-def _only_key(memo):
-    (key,) = memo
-    return key
 
 
 def _runner(what, data, rag):
@@ -159,67 +207,75 @@ def _runner(what, data, rag):
     return run
 
 
-def _discover(run):
-    """glia_tpu's steady-state call (result, stats), then the port's
-    discovery call: (glia_tpu's result, its stats, the memo key, the
-    last-phase count the discovery measured)."""
-    _, _, want, sw = _two_calls(lambda st: run(jm, st))
+def _discover(glia, what, data, rag):
+    """glia_tpu's steady-state call (result, stats; the module's), then
+    the port's discovery call: (the port's ``run``, glia_tpu's result, its
+    stats, the memo entry, the last-phase count the discovery
+    measured)."""
+    _, _, want, sw = glia(512, what)
+    run = _runner(what, data, rag)
     run(tm, {}, device="cpu")
-    key = _only_key(tm._PLAN_LAST_STEPS)
-    K = tm._PLAN_LAST_STEPS[key]
+    (entry,) = tm._PLAN_MEMO.values()
+    K = entry.last_steps
     assert K >= 1
-    return want, sw, key, K
+    return run, want, sw, entry, K
+
+
+def _assert_eager_rerun(st, entry, K):
+    """A call that reran its plan eagerly: every superstep of the call is
+    the rerun's, and the memo entry's count is back at K."""
+    assert st["plan_replayed"] is True and st["plan_graph"] is False
+    assert st["eager_supersteps"] == st["n_supersteps"] >= K
+    assert entry.last_steps == K
 
 
 @pytest.mark.parametrize("lower", ["to_0", "by_1"])
 @pytest.mark.parametrize("what", ["median", "exact"])
-def test_last_phase_goes_on_past_a_lowered_count(bench512, fresh, lower,
-                                                 what):
+def test_last_phase_goes_on_past_a_lowered_count(bench512, fresh, glia,
+                                                 lower, what):
     """The program runs the last phase for the recorded count only; with
-    the count lowered, the port finishes that phase eagerly from the
-    program's state (and takes the exact saliencies again), and the rows
-    are still glia_tpu's."""
-    run = _runner(what, *bench512)
-    want, sw, key, K = _discover(run)
-    tm._PLAN_LAST_STEPS[key] = 0 if lower == "to_0" else K - 1
+    the count lowered, the program ends with a live edge and the port
+    reruns the plan eagerly, its last phase to completion (and the exact
+    saliencies at the memoized depth capacity), raising the count once;
+    the rows are still glia_tpu's."""
+    run, want, sw, entry, K = _discover(glia, what, *bench512)
+    entry.last_steps = 0 if lower == "to_0" else K - 1
     sg = {}
     got = run(tm, sg, device="cpu")
-    assert sg["plan_replayed"] is True
+    _assert_eager_rerun(sg, entry, K)
     _assert_same_run(got, want, sg, sw)
 
 
 @pytest.mark.parametrize("what", ["exact", "mean", "median"])
 def test_a_lowered_count_goes_eager_once_then_runs_in_the_program(
-        bench512, fresh, what):
-    """With the memoized count one short, the next call finishes the last
-    phase eagerly (one superstep) and raises the count back; the call
-    after it runs every superstep in the program, with no eager
-    superstep, and returns glia_tpu's rows and saliencies."""
-    run = _runner(what, *bench512)
-    want, sw, key, K = _discover(run)
-    tm._PLAN_LAST_STEPS[key] = K - 1
+        bench512, fresh, glia, what):
+    """With the memoized count one short, the next call reruns the plan
+    eagerly and raises the count back; the call after it runs every
+    superstep in the program, with no eager superstep, and returns
+    glia_tpu's rows and saliencies."""
+    run, want, sw, entry, K = _discover(glia, what, *bench512)
+    entry.last_steps = K - 1
     st1, st2 = {}, {}
     first = run(tm, st1, device="cpu")
-    assert st1["plan_replayed"] is True and st1["eager_supersteps"] == 1
-    assert tm._PLAN_LAST_STEPS[key] == K
+    _assert_eager_rerun(st1, entry, K)
     got = run(tm, st2, device="cpu")
     assert st2["plan_replayed"] is True and st2["eager_supersteps"] == 0
+    assert entry.last_steps == K
     _assert_same_run(got, want, st2, sw)
     _assert_same_run(first, want, st1, sw)
 
 
 @pytest.mark.parametrize("what", ["exact", "mean", "median"])
 def test_a_count_above_the_need_changes_nothing_and_stays(bench512, fresh,
-                                                          what):
+                                                          glia, what):
     """The last phase run for K + 2 supersteps where the data needs K:
     the same rows, saliencies (bit for bit) and superstep count as at K,
     so the guarded supersteps past the need are no-ops; and a call that
     needed fewer supersteps leaves the count where it was."""
-    run = _runner(what, *bench512)
-    want, sw, key, K = _discover(run)
+    run, want, sw, entry, K = _discover(glia, what, *bench512)
     st_k, st_a = {}, {}
     at_k = run(tm, st_k, device="cpu")
-    tm._PLAN_LAST_STEPS[key] = K + 2
+    entry.last_steps = K + 2
     above = run(tm, st_a, device="cpu")
     assert st_a["plan_replayed"] is True and st_a["eager_supersteps"] == 0
     assert st_a["n_supersteps"] == st_k["n_supersteps"]
@@ -227,25 +283,26 @@ def test_a_count_above_the_need_changes_nothing_and_stays(bench512, fresh,
     np.testing.assert_array_equal(_np(above[0]), _np(at_k[0]))
     np.testing.assert_array_equal(_np(above[1]), _np(at_k[1]))
     _assert_same_run(above, want, st_a, sw)
-    assert tm._PLAN_LAST_STEPS[key] == K + 2
+    assert entry.last_steps == K + 2
 
 
-def test_an_explicit_plan_leaves_the_count(bench512, fresh):
-    """An explicit plan (here the memoized one, passed in) runs eagerly,
-    its last phase to completion, and records no last-phase count."""
+def test_an_explicit_plan_leaves_the_count(bench512, fresh, glia):
+    """An explicit plan (here the memoized one, passed in) is rerun
+    eagerly, its last phase to completion, and leaves the memo entry's
+    count as it was."""
     data, rag = bench512
-    want, sw, key, K = _discover(_runner("mean", data, rag))
-    tm._PLAN_LAST_STEPS[key] = K - 1
+    _, want, sw, entry, K = _discover(glia, "mean", data, rag)
+    entry.last_steps = K - 1
     u, v, s, c = jm.edge_mean_arrays(rag, data["pb"])
     sc = torch.stack([torch.as_tensor(s, dtype=torch.float64),
                       torch.as_tensor(c, dtype=torch.float64)], dim=1)
     st = {}
     got = tm._fused_multiphase_core(
         u, v, (sc,), tm._mean_stat_packed, rag.n_regions, 256,
-        torch.float64, torch.device("cpu"), plan=tm._PLAN_MEMO[key],
-        stats=st)
-    assert st["plan_replayed"] is False and st["eager_supersteps"] >= 1
-    assert tm._PLAN_LAST_STEPS[key] == K - 1
+        torch.float64, torch.device("cpu"), plan=entry.phases, stats=st)
+    assert st["plan_replayed"] is False
+    assert st["eager_supersteps"] == st["n_supersteps"] >= 1
+    assert entry.last_steps == K - 1
     _assert_same_run(got, want, st, sw)
 
 
@@ -265,8 +322,7 @@ def test_injected_tight_plan_falls_back_on_both(bench512, fresh):
     tkey = (E, R, tm._mean_stat_packed, ((2, "float64"),), 4, "float64",
             False)
     jm._PLAN_MEMO[jkey] = _tight_plan(rag)
-    tm._PLAN_MEMO[tkey] = _tight_plan(rag)
-    tm._PLAN_LAST_STEPS[tkey] = 3
+    tm._PLAN_MEMO[tkey] = tm._Plan(_tight_plan(rag), 3)
     sw, sg = {}, {}
     want = _policy_run(jm, "mean", data, rag, mode="fused_ms", stats=sw)
     got = _policy_run(tm, "mean", data, rag, mode="fused_ms", stats=sg,
@@ -274,7 +330,6 @@ def test_injected_tight_plan_falls_back_on_both(bench512, fresh):
     assert sw["fallback"] is True and sg["fallback"] is True
     _assert_same_run(got, want, sg, sw)
     assert jkey not in jm._PLAN_MEMO and tkey not in tm._PLAN_MEMO
-    assert tkey not in tm._PLAN_LAST_STEPS
 
 
 def test_injected_tight_plan_rediscovers_the_exact_flow(bench512, fresh):
@@ -290,16 +345,16 @@ def test_injected_tight_plan_rediscovers_the_exact_flow(bench512, fresh):
             False)
     jm._PLAN_MEMO[jkey] = _tight_plan(rag)
     jm._EXACT_SAL_L[(E, M, R, str(jnp.float64))] = 8
-    tm._PLAN_MEMO[tkey] = _tight_plan(rag)
+    tm._PLAN_MEMO[tkey] = tm._Plan(_tight_plan(rag))
     tm._EXACT_SAL_L[(E, M, R, "float64")] = 8
     sw, sg = {}, {}
     want = _exact_run(jm, data, rag, stats=sw)
     got = _exact_run(tm, data, rag, stats=sg, device="cpu")
     _assert_same_run(got, want, sg, sw)
     assert sg["plan_replayed"] is False
-    assert [tuple(e) for e in tm._PLAN_MEMO[tkey]] == [
+    assert [tuple(e) for e in tm._PLAN_MEMO[tkey].phases] == [
         tuple(e) for e in jm._PLAN_MEMO[jkey]]
-    assert tm._PLAN_MEMO[tkey] != _tight_plan(rag)
+    assert tm._PLAN_MEMO[tkey].phases != _tight_plan(rag)
 
 
 def _store(path):
@@ -342,7 +397,7 @@ def test_plan_store_matches_glia_tpu(bench512, fresh, monkeypatch,
 
 def _reload(monkeypatch):
     """A fresh process's memos: empty, the store not yet read."""
-    for name in ("_PLAN_MEMO", "_PLAN_LAST_STEPS", "_EXACT_SAL_L"):
+    for name in ("_PLAN_MEMO", "_EXACT_SAL_L"):
         monkeypatch.setattr(tm, name, {})
     monkeypatch.setattr(tm, "_PLAN_STORE_LOADED", [None])
 
@@ -350,7 +405,7 @@ def _reload(monkeypatch):
 def test_plan_store_replays_after_a_fresh_load(bench512, fresh, monkeypatch,
                                                tmp_path):
     """A new process's first exact call replays the stored plan and depth
-    capacity (with no recorded last-phase count, that phase runs
+    capacity (with no recorded last-phase count, the plan is rerun
     eagerly), records the count, and gives the first process's rows."""
     data, rag = bench512
     enable_persistent_cache(str(tmp_path))
@@ -362,8 +417,10 @@ def test_plan_store_replays_after_a_fresh_load(bench512, fresh, monkeypatch,
     got = _exact_run(tm, data, rag, stats=st, device="cpu")
     assert st["plan_replayed"] is True and st["fallback"] is False
     assert "t_plan_program" in st
+    assert st["eager_supersteps"] == st["n_supersteps"]
     _assert_same_run(got, want, st, first)
-    assert len(tm._PLAN_LAST_STEPS) == 1
+    (entry,) = tm._PLAN_MEMO.values()
+    assert entry.last_steps >= 1
 
 
 @pytest.mark.parametrize("content", ["{not json", '{"plans": {"[1, 2]": 5}}',

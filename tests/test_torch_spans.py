@@ -8,8 +8,8 @@ and counts what it drops; under ``torch.profiler`` a span is a
 entered.  The kernels' byte counts: a graph's tally carries them into
 each replay.  The program: ``merge_batched_device_exact`` writes one
 ``merge.exact`` record a call (a plan-memo miss, then hits; the eager
-continuation's span and supersteps only where the plan is one superstep
-short, which raises the count once: plan.last_steps_raised) with its
+rerun's span and supersteps only where the plan is one superstep short,
+which raises the count once: plan.last_steps_raised) with its
 ``stats`` seconds taken from the spans, and
 ``hmt_segment`` / ``hmt_train`` fill their stage seconds from theirs.
 Every test starts from empty records and plan memos.
@@ -42,7 +42,7 @@ def fresh(monkeypatch):
                         deque(maxlen=profiling.MAX_RECORDS))
     monkeypatch.setattr(profiling, "totals", {})
     monkeypatch.setattr(profiling, "dropped", 0)
-    for name in ("_PLAN_MEMO", "_PLAN_LAST_STEPS", "_EXACT_SAL_L"):
+    for name in ("_PLAN_MEMO", "_EXACT_SAL_L"):
         monkeypatch.setattr(tm, name, {})
     monkeypatch.setattr(tm, "_PLAN_STORE_LOADED", [None])
     monkeypatch.setattr(tm, "plan_store_dir", lambda: None)
@@ -270,15 +270,15 @@ def _exact(section, st):
 def test_merge_exact_writes_one_record_a_call(section):
     """Discovery, then the one program twice, then the program with its
     last phase one superstep short (the plan of a map that needs one
-    more: it goes on eagerly and raises the count), then the program at
-    the raised count (no eager continuation): one merge.exact record a
-    call, stats seconds = span seconds."""
+    more: the plan is rerun eagerly and the count raised), then the
+    program at the raised count (no eager rerun): one merge.exact record
+    a call, stats seconds = span seconds."""
     st0, st1, st2 = {}, {}, {}
     _exact(section, st0)
     _exact(section, st1)
     want = _exact(section, st2)
-    (key,) = tm._PLAN_LAST_STEPS
-    tm._PLAN_LAST_STEPS[key] -= 1
+    (entry,) = tm._PLAN_MEMO.values()
+    entry.last_steps -= 1
     st3, st4 = {}, {}
     got = _exact(section, st3)
     again = _exact(section, st4)
@@ -300,7 +300,7 @@ def test_merge_exact_writes_one_record_a_call(section):
         assert "merge.graph_launch" not in r.spans
         assert "merge.eager_tail" not in r.spans
 
-    assert st3["eager_supersteps"] >= 1
+    assert st3["eager_supersteps"] == st3["n_supersteps"] >= 1
     assert r3.counts == {"plan.memo_hit": 1,
                          "merge.eager_supersteps": st3["eager_supersteps"],
                          "plan.last_steps_raised": 1}
@@ -332,12 +332,12 @@ def test_last_steps_raised_counts_once_a_raise(section, what):
                                     device="cpu")
 
     call()
-    (key,) = tm._PLAN_LAST_STEPS
-    K = tm._PLAN_LAST_STEPS[key]
+    (entry,) = tm._PLAN_MEMO.values()
+    K = entry.last_steps
     for lower, raised in ((1, 1), (0, 1), (2, 2), (-1, 2)):
-        tm._PLAN_LAST_STEPS[key] = K - lower
+        entry.last_steps = K - lower
         call()
-        assert tm._PLAN_LAST_STEPS[key] == max(K, K - lower)
+        assert entry.last_steps == max(K, K - lower)
         assert profiling.totals.get("plan.last_steps_raised", 0) == raised
     if what == "exact":
         # the count lands in the raising call's record
@@ -351,8 +351,7 @@ def test_merge_exact_fallback_counts(section):
     u, v, s, c, R = section
     key = (len(u), R, tm._mean_stat_packed, ((2, "float64"),), 4,
            "float64", False)
-    tm._PLAN_MEMO[key] = [(1, len(u), R), (None, 256, 128)]
-    tm._PLAN_LAST_STEPS[key] = 3
+    tm._PLAN_MEMO[key] = tm._Plan([(1, len(u), R), (None, 256, 128)], 3)
     tm._EXACT_SAL_L[(len(u), R - 1, R, "float64")] = 8
     st = {}
     _exact(section, st)
